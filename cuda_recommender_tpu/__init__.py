@@ -1,12 +1,12 @@
-"""cuda_recommender_tpu — TPU-native matrix-factorization recommender.
+"""cuda_recommender_tpu — matrix-factorization recommender on JAX.
 
-A from-scratch JAX/XLA/pjit re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 Zialus/CUDA-Recommender (CCD++ and ALS rating-matrix factorization with
 dual-backend golden validation, per-iteration RMSE telemetry, reference
-binary dataset/model formats, benchmark sweeps, and a serving path), built
-for TPU hardware: dense-residual / padded-ELL sweep kernels, MXU gram
-assembly, shard_map execution over device meshes, and streaming MIPS top-k
-retrieval.
+binary dataset/model formats, benchmark sweeps, and a serving path), run on
+NVIDIA GPUs: dense-residual / panel-hybrid / padded-ELL sweeps, Pallas
+(Triton) panel kernels, batched gram assembly and solves, shard_map
+execution over device meshes, and streaming MIPS top-k retrieval.
 
 Quick start::
 

@@ -1,6 +1,6 @@
 """Dataset converter CLI: text ratings -> reference packed binary layout.
 
-The TPU-era replacement for the reference's offline preconversion step (its
+The replacement for the reference's offline preconversion step (its
 loaders expect preconverted binaries, /root/reference/src/tools.cpp:3-85, but
 the converter itself is not in that repo). Reads MovieLens-style text
 (``user item rating [ts]``), splits train/test, and writes a

@@ -3,7 +3,7 @@
 The orchestration counterpart of the reference's main()
 (/root/reference/src/main.cpp:38-173): pick solver (CCD default, ALS flag),
 initialize identically-seeded factor copies per enabled backend, run the
-compiled TPU backend (the reference's CUDA role) and optionally the NumPy
+compiled backend (the reference's CUDA role) and optionally the NumPy
 golden backend (the OMP role), compute an independent final RMSE per backend
 (calculate_rmse_directly, src/extras.cpp:182-216), then cross-validate with
 golden_compare (src/main.cpp:133-144) and report phase timings.
@@ -84,11 +84,6 @@ def _run_compiled(cfg: Config, backend: Backend, R, W0, H0, T, log,
                 "(parallel.ccd_hybrid_sharded.make_sharded_hybrid_phase_"
                 "fns, exercised with measured rank/update times on a "
                 "2+-device mesh by tests/test_hybrid_sharded.py)")
-        if backend == Backend.PALLAS:
-            raise NotImplementedError(
-                "phase_timing is not implemented for the pallas backend; "
-                "use dense (same dense-residual schedule) — hybrid, dense "
-                "and ell all support it")
         if cfg.verbose:
             kw["rank_callback"] = (
                 lambda oiter, t, dt, rmse: log.rank(
@@ -108,13 +103,6 @@ def _run_compiled(cfg: Config, backend: Backend, R, W0, H0, T, log,
             from ..parallel.als_ell_sharded import als_ell_train_sharded
             return als_ell_train_sharded(R, W0, H0, T, cfg, mesh, **kw)
         return als_ell_train(R, W0, H0, T, cfg, **kw)
-    if backend == Backend.PALLAS:
-        if mesh is not None:
-            raise NotImplementedError(
-                "the Pallas backend is single-chip; use backend=dense or ell "
-                "with --mesh")
-        from ..solvers.ccd_pallas import ccd_pallas_train
-        return ccd_pallas_train(R, W0, H0, T, cfg, **kw)
     if backend == Backend.HYBRID:
         if mesh is not None:
             if cfg.hybrid_transpose:
@@ -162,8 +150,6 @@ def checkpoint_meta(cfg: Config, backend: Backend, mesh) -> dict:
     if backend == Backend.HYBRID:
         meta["hybrid_dense_cells"] = cfg.hybrid_dense_cells
         meta["hybrid_panel_widths"] = list(cfg.hybrid_panel_widths)
-        # panel_kernel block-pads the panel payloads, so it is layout-bearing
-        meta["hybrid_panel_kernel"] = cfg.hybrid_panel_kernel
     return meta
 
 

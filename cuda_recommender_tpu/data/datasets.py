@@ -10,11 +10,18 @@ parser (``user item rating [ts]`` per line) for real data.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
 
 from .sparse import RatingMatrix, TestCOO, from_coo, make_test
+
+#: fixed in-checkout directory for synthetic_cached (listed in .gitignore)
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".cache", "datasets")
+
 
 
 def synthetic(m: int, n: int, nnz: int, *, k_true: int = 8, noise: float = 0.1,
@@ -73,13 +80,92 @@ def synthetic(m: int, n: int, nnz: int, *, k_true: int = 8, noise: float = 0.1,
     return R, T
 
 
+def _zipf_cdf(size: int, exponent: float) -> np.ndarray:
+    c = np.cumsum(1.0 / np.arange(1, size + 1) ** exponent)
+    return (c / c[-1]).astype(np.float32)
+
+
+def synthetic_device(m: int, n: int, nnz: int, *, k_true: int = 8,
+                     noise: float = 0.1, test_fraction: float = 0.1,
+                     seed: int = 0) -> tuple[RatingMatrix, TestCOO]:
+    """``synthetic()``'s power-law matrix with the heavy work on the default
+    JAX device: the inverse-CDF draws, the de-duplication (a two-key sort),
+    the random subset and the low-rank ratings. Same distribution as
+    synthetic() (zipf marginals, rank-``k_true`` ratings + noise, a random
+    test split); another draw for the same seed. The host only builds the
+    CSR/CSC containers. Made for 100M-rating matrices, whose host-side
+    NumPy generation takes minutes."""
+    import jax
+    import jax.numpy as jnp
+
+    target = int(nnz / (1.0 - test_fraction)) if test_fraction > 0 else nnz
+    target = min(target, m * n)
+    cu, ci = jnp.asarray(_zipf_cdf(m, 0.8)), jnp.asarray(_zipf_cdf(n, 0.9))
+
+    @functools.partial(jax.jit, static_argnums=1)
+    def draw(key, size):
+        ku, ki = jax.random.split(key)
+        u = jnp.searchsorted(cu, jax.random.uniform(ku, (size,)))
+        i = jnp.searchsorted(ci, jax.random.uniform(ki, (size,)))
+        return (jnp.minimum(u, m - 1).astype(jnp.int32),
+                jnp.minimum(i, n - 1).astype(jnp.int32))
+
+    @jax.jit
+    def first_of_runs(u, i):                 # sort pairs, flag first copies
+        u, i = jax.lax.sort((u, i), num_keys=2)
+        new = jnp.concatenate([jnp.ones(1, bool),
+                               (u[1:] != u[:-1]) | (i[1:] != i[:-1])])
+        return u, i, new
+
+    @functools.partial(jax.jit, static_argnums=3)
+    def compact(u, i, new, count):
+        at = jnp.nonzero(new, size=count)[0]
+        return u[at], i[at]
+
+    key = jax.random.PRNGKey(seed)
+    u = i = jnp.zeros(0, jnp.int32)
+    for _ in range(6):                       # overdraw, top up if needed
+        need = target - u.shape[0]
+        if need <= 0:
+            break
+        key, kd = jax.random.split(key)
+        du, di = draw(kd, int(need * 1.7) + 16)
+        u, i, new = first_of_runs(jnp.concatenate([u, du]),
+                                  jnp.concatenate([i, di]))
+        u, i = compact(u, i, new, int(new.sum()))
+
+    @functools.partial(jax.jit, static_argnums=3)
+    def rate(key, u, i, total):
+        kp, kw, kh, kn = jax.random.split(key, 4)
+        # a random subset of ``total`` pairs, in random order
+        _, u, i = jax.lax.sort((jax.random.uniform(kp, u.shape), u, i),
+                               num_keys=1)
+        u, i = u[:total], i[:total]
+        sd = 1.0 / np.sqrt(k_true)
+        W = sd * jax.random.normal(kw, (m, k_true))
+        H = sd * jax.random.normal(kh, (n, k_true))
+        v = (W[u] * H[i]).sum(-1) + 3.5 + noise * jax.random.normal(
+            kn, (total,))
+        return u, i, v
+
+    total = min(target, u.shape[0])
+    u, i, v = (np.asarray(x) for x in rate(key, u, i, total))
+    n_test = int(total * test_fraction)
+    R = from_coo(m, n, u[n_test:], i[n_test:], v[n_test:])
+    T = make_test(m, n, u[:n_test], i[:n_test], v[:n_test])
+    return R, T
+
+
 def synthetic_cached(m: int, n: int, nnz: int, *, seed: int = 0,
                      test_fraction: float = 0.1,
-                     cache_dir: str = "/tmp") -> tuple[RatingMatrix, TestCOO]:
-    """Disk-cached ``synthetic()``: the inverse-CDF generation of a
-    50-100M-draw Zipf matrix takes minutes; benchmark drivers (bench.py,
-    scripts/bench_*.py) share one deterministic on-disk instance keyed by
-    (m, n, nnz, seed)."""
+                     cache_dir: str | None = None
+                     ) -> tuple[RatingMatrix, TestCOO]:
+    """Disk-cached ``synthetic()``: generating a 100M-rating Zipf matrix
+    takes a minute or more, so runs that train on the same matrix more than
+    once share one deterministic on-disk instance keyed by (m, n, nnz,
+    seed), under ``cache_dir`` (default CACHE_DIR)."""
+    cache_dir = cache_dir or CACHE_DIR
+    os.makedirs(cache_dir, exist_ok=True)
     path = os.path.join(cache_dir, f"crtpu_synth_{m}_{n}_{nnz}_s{seed}.npz")
     if os.path.exists(path):
         z = np.load(path)
@@ -97,8 +183,8 @@ def synthetic_cached(m: int, n: int, nnz: int, *, seed: int = 0,
 
 def ml1m_like(seed: int = 0, *, test_fraction: float = 0.1
               ) -> tuple[RatingMatrix, TestCOO]:
-    """Deterministic MovieLens-1M-calibrated fixture (the environment has no
-    network access to fetch the real dump — VERDICT round-1 #7).
+    """Deterministic MovieLens-1M-calibrated fixture (no network access to
+    fetch the real dump).
 
     Matches ml-1m's published marginals: 6040 users x 3706 rated movies,
     ~1.0M ratings, integer ratings 1..5 with mean ≈ 3.58, doubly power-law

@@ -1,4 +1,4 @@
-"""Host-local shard loading for multi-host training (VERDICT r2 missing #3).
+"""Host-local shard loading for multi-host training.
 
 The reference's binary dataset format (meta_modified_all,
 /root/reference/src/tools.cpp:3-85) is trivially range-readable: the CSR/CSC
@@ -236,7 +236,7 @@ def load_local_ell_shards(dirname: str, num_shards: int,
 
 
 # ---------------------------------------------------------------------------
-# Hybrid-backend host-local loading (VERDICT r3 next #5)
+# Hybrid-backend host-local loading
 #
 # The hybrid plan's LAYOUT (degree sort, panel stair, light-remainder ELL
 # geometry) is nnz-independent once the light degrees are known; only the

@@ -69,8 +69,8 @@ def calrmse_device(test_i: jnp.ndarray, test_j: jnp.ndarray, test_v: jnp.ndarray
                    chunk: int = 1 << 20) -> jnp.ndarray:
     """On-device chunked test RMSE (plays GPU_rmse, cuda_src/CUDA_AUX.cu:3-27).
 
-    Gathers factor *rows*, so factors are taken entity-major internally (the
-    fast gather mode on TPU); accumulates per-chunk partial sums in f32 and
+    Gathers factor *rows*, so factors are taken entity-major internally;
+    accumulates per-chunk partial sums in f32 and
     combines across chunks, which keeps error well below test tolerances.
     """
     if not entity_major:

@@ -1,8 +1,8 @@
 """Ranking metrics for the retrieval path (recall/precision/hit-rate/NDCG).
 
 No counterpart exists in the reference (its eval is RMSE-only,
-/root/reference/src/tools.cpp:235-248); these back the north-star MIPS
-serving harness (BASELINE.json: recall@10 over the sharded item table).
+/root/reference/src/tools.cpp:235-248); these back the MIPS serving
+harness (recall@10 of retrieved items, cli/bench_serve.py).
 """
 
 from __future__ import annotations

@@ -84,9 +84,6 @@ def get_train_fn(solver: Solver, backend: Backend, *,
     if backend == Backend.REF:
         from ..solvers.reference import ccd_reference
         return ccd_reference
-    if backend == Backend.PALLAS:
-        from ..solvers.ccd_pallas import ccd_pallas_train
-        return ccd_pallas_train
     if backend == Backend.DENSE:
         from ..solvers.ccd_dense import ccd_dense_train
         return ccd_dense_train

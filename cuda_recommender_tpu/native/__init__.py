@@ -1,7 +1,7 @@
 """Native (C++) host tooling: text parsing, ELL packing, and grouping.
 
 The reference's only native host code is its C++ driver/loader stack
-(/root/reference/src/*.cpp); the TPU framework keeps Python as the host
+(/root/reference/src/*.cpp); this framework keeps Python as the host
 program and pushes the data-preparation hot paths to C++ via a small
 ctypes-bound shared library, with transparent NumPy fallbacks when the
 toolchain is unavailable: text-ratings parsing (textparse), padded-ELL

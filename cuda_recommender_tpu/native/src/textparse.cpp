@@ -2,7 +2,7 @@
 //
 // The reference consumes pre-converted binary dumps and reads text test files
 // with fscanf one value at a time (/root/reference/src/pmf_util.h:155-168).
-// This is the TPU-era offline converter's hot path: parse
+// This is the offline converter's hot path: parse
 // "user item rating [extra...]" lines at memory bandwidth instead of
 // fscanf/np.loadtxt speed (np.loadtxt is ~50x slower on 100M-line dumps).
 //

@@ -1,14 +1,11 @@
 """Chunked COO -> dense residual+mask scatter (trace-time building block).
 
-A TPU scatter's (nnz, 2) index operand is materialized in the tiled
-T(8, 128) layout — the minor dim 2 pads to 128 lanes, a 64x HLO-temp
-expansion. At Netflix-panel sizes that copy alone exceeds HBM: a fresh
-compile of a single 65.9M-nnz panel scatter planned a 33.7 GB index copy
-and aborted (the round-1/2 runs only compiled because the persistent cache
-held programs from an earlier compiler path). Chunking the scatter under
-``lax.fori_loop`` bounds the live padded index temp to one chunk
-(~512 MB at the default) while the zeros-init and every per-chunk update
-stay in-place via the loop-carry aliasing.
+A scatter's (nnz, 2) index operand is materialized as a temp, which a
+backend may pad (a tiled layout can pad the minor dim 2 far beyond its
+payload); at Netflix-panel sizes one unchunked scatter's index copy can
+exceed device memory. Chunking the scatter under ``lax.fori_loop`` bounds
+the live index temp to one chunk while the zeros-init and every per-chunk
+update stay in-place via the loop-carry aliasing.
 
 This replaces the reference's host-side CSR assembly role
 (/root/reference/src/tools.cpp:3-85) for the dense/hybrid residual layouts;
@@ -38,9 +35,8 @@ def densify_coo(lr, lc, lv, rows: int, width: int, residual_dtype,
     zero-initialized and a separate mask is scattered.
 
     Traceable (call under jit). COO pairs must be unique — the scatters
-    pass ``unique_indices=True``, which is load-bearing: without it the TPU
-    scatter serializes duplicate handling (measured ~200x slower at 10M+
-    elements). Chunk-padding entries get DISTINCT out-of-range rows so
+    pass ``unique_indices=True``, which lets the backend skip duplicate
+    handling (a serialized scatter is far slower at 10M+ elements). Chunk-padding entries get DISTINCT out-of-range rows so
     uniqueness holds; ``mode="drop"`` discards them.
     """
     rdt = jnp.dtype(residual_dtype)

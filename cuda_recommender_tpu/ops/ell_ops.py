@@ -1,6 +1,6 @@
 """Device primitives over the degree-bucketed padded-ELL layout (data/ell.py).
 
-These are the TPU replacements for the reference's CSC-segment walks
+These replace the reference's CSC-segment walks
 (/root/reference/src/CCD.cpp:6-43, cuda_src/CCD_CUDA.cu:3-58): every operation
 is a fixed-shape gather / elementwise / lane-reduction over (rows, L) bucket
 tiles, with padding neutralized by the zero-slot trick (padded idx entries
@@ -88,15 +88,11 @@ def _row_gather_tiles(table_ext: jnp.ndarray, ix: jnp.ndarray) -> tuple:
     """Chunked ROW-mode gather of a T-wide table (S+1, T) at one (rows, L)
     index tile; returns T (rows, L) arrays.
 
-    Two measured TPU facts collide here (ARCHITECTURE.md): 1-wide gathers
-    from a flat (S,) table run in scalar mode (~7.7 ns/element) while T>=2
-    gathers from an (S, T) table run in row mode (~3.3 ns/ROW — all T values
-    arrive for the price of one); but a materialized (rows, L, T) gather
-    output pads its minor dim T -> 128 lanes, a ~31x HLO-temp expansion
-    (7.6 GB at Netflix dims). Chunking the rows under lax.map keeps exactly
-    one chunk's padded buffer live while every gather still issues in row
-    mode. Padding chunks index the table's last row — the appended zero row
-    (extend_zero), so they gather exact zeros.
+    One gather of an (S, T) table fetches all T values of a row at once,
+    so several vectors gathered at the same index share one pass; chunking
+    the rows under lax.map bounds the gathered (chunk, L, T) temp to one
+    chunk. Padding chunks index the table's last row — the appended zero
+    row (extend_zero), so they gather exact zeros.
     """
     zero_row = table_ext.shape[0] - 1
     T = int(table_ext.shape[1])
@@ -119,11 +115,9 @@ def paired_gather(pair_ext: jnp.ndarray, idx_tiles) -> list:
     mode with bounded padded temps (_row_gather_tiles). Returns per-bucket
     (first, second) (rows, L) arrays.
 
-    NOTE (measured, results/residual_update_micro_r3.json): feeding a
-    returned tile to MORE THAN ONE consumer op makes XLA re-run the chunked
-    gather map per consumer (~28 ms/rank extra at Netflix dims). When the
-    same gather must serve residual updates AND a sweep, use
-    fused_update_sweep instead.
+    NOTE: feeding a returned tile to MORE THAN ONE consumer op makes XLA
+    re-run the chunked gather map per consumer. When the same gather must
+    serve residual updates AND a sweep, use fused_update_sweep instead.
     """
     return [_row_gather_tiles(pair_ext, ix)[:2] for ix in idx_tiles]
 
@@ -134,10 +128,8 @@ def stacked_remap(vectors, idx: jnp.ndarray) -> list:
     row (sentinel index S), and the flat index is tiled through the chunked
     row gather. Returns J (idx.size,) arrays.
 
-    Replaces per-vector 1-wide gathers that each ran scalar-mode
-    (~7.7 ns/element): the slot<->entity remaps of the hybrid tail measured
-    8.1 ms/rank as four scalar gathers (results/tail_micro_r3.json) and ride
-    the ~3.3 ns/row mode stacked."""
+    Replaces one 1-wide gather per vector (the slot<->entity remaps of the
+    hybrid tail) with one shared pass."""
     tab = extend_zero(jnp.stack(list(vectors), axis=-1))
     sent = tab.shape[0] - 1
     n = idx.shape[0]
@@ -153,10 +145,9 @@ def fused_update_sweep(idx_tiles, val_tiles, side: EllSide,
                        table_ext: jnp.ndarray, owns, signs,
                        sweep_col: int):
     """ONE chunked gather pass per bucket serving the residual update(s) AND
-    the sweep partials — the single-consumer fix for the measured
-    rematerialization pathology (results/residual_update_micro_r3.json: a
-    gathered tile fed to >1 consumer op re-runs the whole chunked gather per
-    consumer, ~28 ms/rank at Netflix dims).
+    the sweep partials — the single-consumer fix for XLA's
+    rematerialization of a gathered tile fed to >1 consumer op (it re-runs
+    the whole chunked gather per consumer).
 
     Inside each lax.map chunk the T-wide gathered tile ``g`` is consumed by
     exactly one chain:
@@ -257,15 +248,8 @@ def fused_sweep(idx_tiles, val_tiles, side: EllSide, table_ext: jnp.ndarray,
 def deferred_sweep(idx_tiles, val_tiles, side: EllSide,
                    table_ext: jnp.ndarray):
     """Wide gather-reduce sweep against a FROZEN residual plus deferred
-    rank-1 corrections — the round-4 single-fast-shape design.
-
-    NOTE (corrected, results/tail_floor_r4.json): the early controls that
-    motivated this op were partially dead-code-eliminated; full-consumer
-    re-measurement puts a 17-wide sweep at ~37 ms/rank vs the 2-wide's
-    23 and the per-rank fused path's 38.6 — the tail is gather-issue
-    bound (~3.9 ns/lane) and the deferred design lands at the SAME wall
-    (41.5 ms/rank). Kept as the opt-in hybrid_defer_group experiment and
-    floor-proof apparatus, not the default.
+    rank-1 corrections (the opt-in hybrid_defer_group experiment, not the
+    default).
 
     So the residual update is DEFERRED: ``table_ext`` carries the sweep
     vector in column 0 and the group's deferred rank-1 update vectors in
@@ -331,12 +315,8 @@ def fused_remap_combine(S_vecs, h_vec, idx: jnp.ndarray,
         h_e[e] = h[idx[e]]
 
     Why fused: a wide stacked remap whose 2G+2 output slices feed separate
-    consumer fusions re-triggers the padded-gather materialization
-    (measured 38 ms/rank in context vs 7.5 isolated,
-    results/deferred_tail_micro_r4.json); consuming the gathered (L, T)
-    tile by ONE in-body chain keeps it unmaterialized, and the in-map
-    gather penalty (~4.6 ns/row) only applies to the ~(m+n) remap rows,
-    not the nnz-scale sweep lanes. ``S_vecs``: list of 2G+1 slot vectors
+    consumer fusions re-materializes the gathered tile; consuming it by ONE
+    in-body chain keeps it unmaterialized. ``S_vecs``: list of 2G+1 slot vectors
     (S_0 first); ``weights``: (2G, N) entity-indexed deferred own values
     (e.g. V_def.T — lane-minor so the per-chunk weight tiles carry no
     minor-dim padding); ``idx``: (N,) slot ids (sentinel = n_slots reads

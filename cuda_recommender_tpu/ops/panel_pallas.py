@@ -1,84 +1,74 @@
-"""Pallas TPU kernels: fused CCD++ panel passes over NaN-sentinel residuals.
+"""Pallas kernels (Triton route): fused CCD++ panel passes over NaN-sentinel
+residuals.
 
-The XLA hybrid step touches each dense panel 3+ times per rank (residual
-update read+write, v-sweep read, u-sweep read) and, in NaN-sentinel mode,
-reads the residual once per g/h einsum pair — ~12 B/cell/rank at bf16.
-These kernels fuse each pass group so every byte is read once:
+The XLA hybrid step touches each dense panel several times per rank
+(residual update read+write, v-sweep read, u-sweep read) and, in
+NaN-sentinel mode, may read the residual once per g/h reduction. These
+kernels fuse each pass group so every byte is read once:
 
   * ``panel_update_vsweep`` — ONE read-modify-write pass: applies the
     deferred-subtract + add-back delta (outer(u_old, v_old) −
     outer(u_pend, v_pend)), writes the new residual, and emits BOTH
     v-sweep partials (g = uᵀ·R_masked, h = (u²)ᵀ·mask) from the freshly
-    updated block while it is VMEM-resident.
+    updated tile while it is in registers.
+  * ``panel_vsweep`` — the same v-sweep partials without the update
+    (inner iterations after the first).
   * ``panel_usweep`` — ONE read pass: emits the u-sweep partials
     (g = R_masked·v, h = mask·v²).
 
-Together: 2 reads + 1 write = 6 B/cell/rank at bf16 — half the XLA
-schedule's traffic. The mask is derived in-register from the NaN sentinel
-(mask_dtype="nan", ops/densify.py), so no mask array exists at all.
+Together: 2 reads + 1 write = 6 B/cell/rank at bf16. The mask is derived
+in-register from the NaN sentinel (mask_dtype="nan", ops/densify.py), so
+no mask array exists at all.
 
-Layout rules learned the hard way (each measured on a 3.05e9-cell bf16
-panel; HBM floor A 7.4 ms / B 3.7 ms):
+GPU blocks run concurrently and in no order, so nothing accumulates across
+programs:
 
-  1. EVERY vector crosses the HBM↔VMEM boundary in ROW form — u-side as
-     (1, Mp) arrays blocked (1, bm), v-side as (1, W) — never as (M, 1)
-     columns. A (bm, 1) block is lane-padded 1→128 by the T(8,128)
-     tiling, so per-step column-vector DMAs cost 128x their payload
-     (they equaled the panel's own traffic).
-  2. Orientation changes happen IN-REGISTER on the tiny vectors
-     (``u_row.T`` — a cheap (1, n)↔(n, 1) relayout), never on the
-     (bm, bw) block: a lane-contracting ``dot_general`` on the block
-     makes Mosaic transpose the whole block every step (B pass 30.9 →
-     13.2 ms native).
-  3. The rank-1 delta is a VPU broadcast (u_col * v_row) that fuses into
-     the elementwise update chain; expressing it as an MXU outer product
-     materializes (bm, bw) f32 VMEM temps (A pass 67 → 22.5 ms).
-  4. Big-block reductions DO use the MXU, in its native orientation
-     (contract lanes of LHS x sublanes of RHS): uᵀ·R = dot((1,bm),
-     (bm,bw)); R·v = dot((bm,bw), v.T) with the (bm, 1) product
-     transposed back to a row in-register.
+  * ``panel_usweep``: each program owns ``bm`` rows and loops over every
+    column block, so its row sums are complete when it stores them.
+  * ``panel_update_vsweep`` / ``panel_vsweep``: the grid is (column blocks
+    × row chunks). Each program loops over the row blocks of its chunk and
+    writes one row of ``(n_chunks, W)`` column partials; one ``jnp.sum``
+    over the chunk axis finishes the reduction. No atomics, so results are
+    deterministic.
+
+Ragged edges use masked loads with NaN as the fill value (a NaN cell is an
+unobserved cell), so panels keep their natural shape.
 
 Replaces the reference's per-rank CUDA kernel sequence
 UpdateRating_DUAL + RankOneUpdate_v/_u (/root/reference/cuda_src/
 CCD_CUDA.cu:60-104,24-58) for the panel-covered cells; the decomposition
 itself has no reference counterpart.
-
-Grid/accumulation notes: reductions that span grid steps keep their
-reduced dimension INNERMOST (fastest) so the tiny accumulator output
-blocks are revisited consecutively — initialized on the first visit
-(pl.when), accumulated in VMEM, flushed when the outer index advances.
-TPU grids are sequential, making this race-free.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
-#: default block shape (rows x cols). 512x2048 bf16 = 2 MB residual block;
-#: with double-buffered in/out aliasing plus f32 temps this stays under
-#: scoped VMEM (3072-wide fails to compile). Measured best on the v5e
-#: block sweep: A 22.5 ms / B 13.2 ms on a 3.05e9-cell panel (1024-wide:
-#: 24.7 / 13.2). Env-overridable for block-size sweeps.
-BM = int(os.environ.get("CRTPU_PANEL_BM", "512"))
-BW = int(os.environ.get("CRTPU_PANEL_BW", "2048"))
-
-_F32 = jax.lax.Precision.HIGHEST
+#: tile shape (rows x cols) of one loop step. Powers of two (Triton's
+#: rule); a (32, 128) f32 tile is 32 values per thread at 4 warps, which
+#: leaves registers for the two (bm, bw) accumulators.
+BM = 32
+BW = 128
+NUM_WARPS = 4
+#: programs the v-sweep grid aims for: a few per SM on a 132-SM card, so
+#: memory latency is hidden without shrinking each program's row loop.
+TARGET_PROGRAMS = 1024
 
 
 def _round_to_storage(x, dtype):
-    """Round f32 ``x`` to the storage dtype's grid, returning f32, with an
-    op sequence that is honest on EVERY backend. A plain
-    astype(dt).astype(f32) round-trip is elided by XLA's excess-precision
-    rule (measured 0.3% sweep-vs-stored drift), and lax.reduce_precision
-    does not lower in Mosaic — so bf16 uses the canonical integer
-    round-to-nearest-even on the raw bits (NaN sentinels are canonical
-    0x7FC00000 and survive the bias add unchanged). fp8 keeps the astype
-    round-trip (screening dtype; Mosaic lowers its converts honestly)."""
+    """Round f32 ``x`` to the storage dtype's grid, returning f32. A plain
+    astype(dt).astype(f32) round-trip can be elided by XLA's
+    excess-precision rule (which the interpreter runs under), so bf16 uses
+    the integer round-to-nearest-even on the raw bits. NaN (the unobserved
+    sentinel) passes through unchanged: the bias add would carry a NaN
+    whose mantissa is all ones — the GPU's canonical NaN, 0x7FFFFFFF — into
+    the sign bit and turn it into -0. Other dtypes keep the astype
+    round-trip."""
     dt = jnp.dtype(dtype)
     if dt == jnp.dtype(jnp.float32):
         return x
@@ -86,257 +76,172 @@ def _round_to_storage(x, dtype):
         bits = jax.lax.bitcast_convert_type(x, jnp.uint32)
         lsb = (bits >> 16) & jnp.uint32(1)
         rounded = (bits + jnp.uint32(0x7FFF) + lsb) & jnp.uint32(0xFFFF0000)
-        return jax.lax.bitcast_convert_type(rounded, jnp.float32)
+        return jnp.where(jnp.isnan(x), x,
+                         jax.lax.bitcast_convert_type(rounded, jnp.float32))
     return x.astype(dt).astype(jnp.float32)
 
 
-def padded_panel_shape(M: int, W: int, bm: int = BM, bw: int = BW,
-                       shards: int = 1) -> tuple[int, int]:
-    """Block-aligned allocation shape for a (M, W) panel so the kernels run
-    pad-free (an in-loop pad/slice would add two full copy passes per
-    rank). Blocks clamp to the panel dims, so small panels stay small.
-
-    ``shards`` > 1 (M must be shards-aligned): each device's LOCAL row
-    block is padded independently, so the global array is the
-    concatenation of N block-aligned local blocks — the layout the
-    sharded hybrid step needs (tail-only padding would shift every
-    device's block boundary)."""
-    if shards > 1:
-        Ml = M // shards
-        bm_ = min(bm, Ml)
-        return (shards * (-(-Ml // bm_) * bm_),
-                padded_panel_shape(Ml, W, bm, bw)[1])
-    bm_, bw_ = min(bm, M), min(bw, W)
-    return (-(-M // bm_) * bm_, -(-W // bw_) * bw_)
+def _split(R):
+    """(residual with NaN -> 0, mask) as f32 from a loaded tile."""
+    isn = jnp.isnan(R)
+    return jnp.where(isn, 0.0, R), jnp.where(isn, 0.0, 1.0)
 
 
-def _col_reduce(u_row, B):
-    """(1, bw) = u·B for u (1, bm), B (bm, bw) — MXU-NATIVE contraction
-    (lanes of LHS x sublanes of RHS), f32 accumulate."""
-    return jax.lax.dot_general(u_row, B, (((1,), (0,)), ((), ())),
-                               preferred_element_type=jnp.float32,
-                               precision=_F32)
+def _tile(ref, rows, cols, M, W):
+    """Masked (bm, bw) tile load; out-of-range cells read as NaN
+    (unobserved)."""
+    ri = rows.start + jnp.arange(rows.size)
+    ci = cols.start + jnp.arange(cols.size)
+    mask = (ri < M)[:, None] & (ci < W)[None, :]
+    return plgpu.load(ref.at[rows, cols], mask=mask, other=jnp.nan), mask
 
 
-def _row_reduce_rowout(v_row, B):
-    """(1, bm) = (B·vᵀ)ᵀ for B (bm, bw), v (1, bw). B·vᵀ contracts lanes
-    of B against sublanes of vᵀ — MXU-native, so only the two TINY vectors
-    relayout (v to a column going in, the (bm, 1) product back to a row
-    coming out). Contracting v against B's lanes directly instead forces
-    Mosaic to transpose the whole (bm, bw) block every step — measured
-    2.3x slower (30.9 vs 13.2 ms on a 3.05e9-cell panel)."""
-    prod = jax.lax.dot_general(B, v_row.T, (((1,), (0,)), ((), ())),
-                               preferred_element_type=jnp.float32,
-                               precision=_F32)
-    return prod.T
+def _vec(ref, sl, n):
+    """Masked vector load; out-of-range entries read as 0."""
+    mask = sl.start + jnp.arange(sl.size) < n
+    return plgpu.load(ref.at[sl], mask=mask, other=0.0)
 
 
-def _uv_kernel(Rd_ref, uo_ref, up_ref, vo_ref, vp_ref,
-               Rout_ref, g_ref, h_ref):
-    im = pl.program_id(1)
+def _vsweep_kernel(Rd_ref, uo_ref, up_ref, vo_ref, vp_ref, *refs,
+                   bm, bw, steps, update):
+    if update:
+        Rout_ref, g_ref, h_ref = refs
+    else:
+        g_ref, h_ref = refs
+    M, W = Rd_ref.shape
+    jw, c = pl.program_id(0), pl.program_id(1)
+    cols = pl.ds(jw * bw, bw)
+    if update:
+        vo = _vec(vo_ref, cols, W)
+        vp = _vec(vp_ref, cols, W)
+
+    def body(i, carry):
+        acc_g, acc_h = carry
+        rows = pl.ds((c * steps + i) * bm, bm)
+        uo = _vec(uo_ref, rows, M)
+        R, mask = _tile(Rd_ref, rows, cols, M, W)
+        R = R.astype(jnp.float32)
+        if update:
+            up = _vec(up_ref, rows, M)
+            delta = uo[:, None] * vo[None, :] - up[:, None] * vp[None, :]
+            # f32 add + ONE rounding to the storage dtype: the sweep sees
+            # exactly the value that persists. NaN + delta stays NaN.
+            R = _round_to_storage(R + delta, Rd_ref.dtype)
+            plgpu.store(Rout_ref.at[rows, cols], R.astype(Rout_ref.dtype),
+                        mask=mask)
+        Rf, Mf = _split(R)
+        return (acc_g + uo[:, None] * Rf,
+                acc_h + (uo * uo)[:, None] * Mf)
+
+    zeros = jnp.zeros((bm, bw), jnp.float32)
+    acc_g, acc_h = jax.lax.fori_loop(0, steps, body, (zeros, zeros))
+    out = pl.ds(jw * bw, bw)
+    omask = jw * bw + jnp.arange(bw) < W
+    plgpu.store(g_ref.at[c, out], acc_g.sum(axis=0), mask=omask)
+    plgpu.store(h_ref.at[c, out], acc_h.sum(axis=0), mask=omask)
+
+
+def _usweep_kernel(Rd_ref, v_ref, g_ref, h_ref, *, bm, bw):
+    M, W = Rd_ref.shape
+    rows = pl.ds(pl.program_id(0) * bm, bm)
+
+    def body(j, carry):
+        acc_g, acc_h = carry
+        cols = pl.ds(j * bw, bw)
+        v = _vec(v_ref, cols, W)
+        R, _ = _tile(Rd_ref, rows, cols, M, W)
+        Rf, Mf = _split(R.astype(jnp.float32))
+        return acc_g + Rf * v[None, :], acc_h + Mf * (v * v)[None, :]
+
+    zeros = jnp.zeros((bm, bw), jnp.float32)
+    acc_g, acc_h = jax.lax.fori_loop(0, pl.cdiv(W, bw), body,
+                                     (zeros, zeros))
+    omask = rows.start + jnp.arange(bm) < M
+    plgpu.store(g_ref.at[rows], acc_g.sum(axis=1), mask=omask)
+    plgpu.store(h_ref.at[rows], acc_h.sum(axis=1), mask=omask)
+
+
+def vsweep_chunks(M: int, W: int, bm: int = BM, bw: int = BW
+                  ) -> tuple[int, int]:
+    """(row blocks per program, number of row chunks) for the v-sweep grid:
+    enough chunks that (column blocks × chunks) reaches TARGET_PROGRAMS,
+    never more chunks than row blocks."""
+    row_blocks = pl.cdiv(M, bm)
+    want = max(1, pl.cdiv(TARGET_PROGRAMS, pl.cdiv(W, bw)))
+    steps = pl.cdiv(row_blocks, min(row_blocks, want))
+    return steps, pl.cdiv(row_blocks, steps)
+
+
+def _interpret(flag):
+    """Pallas interprets the kernels on the CPU (tests) and compiles them
+    for the GPU everywhere else, unless the caller says otherwise."""
+    return jax.default_backend() == "cpu" if flag is None else flag
+
+
+def _vsweep_call(Rd, u_old, u_pend, v_old, v_pend, *, update, interpret,
+                 bm, bw):
+    M, W = Rd.shape
     f32 = jnp.float32
-    uo, up = uo_ref[...], up_ref[...]    # (1, bm) row-blocks
-    # delta via VPU broadcast from in-register transposed columns: fuses
-    # into the elementwise update chain. MXU outer products (contraction
-    # dim 1) materialize two (bm, bw) f32 VMEM temps instead — measured
-    # 3x slower (67 vs 22.5 ms on a 3.05e9-cell panel).
-    delta = uo.T * vo_ref[...] - up.T * vp_ref[...]
-    # f32 add + ONE explicit rounding to the storage dtype. The sweep MUST
-    # see exactly the value that persists (see _round_to_storage).
-    # NaN (unobserved sentinel) passes through the add untouched.
-    Rnew = _round_to_storage(Rd_ref[...].astype(f32) + delta, Rd_ref.dtype)
-    Rout_ref[...] = Rnew.astype(Rd_ref.dtype)         # exact: pre-rounded
-    isn = jnp.isnan(Rnew)
-    Rf = jnp.where(isn, jnp.float32(0), Rnew)
-    Mf = (~isn).astype(f32)
-    gp = _col_reduce(uo, Rf)                          # (1, bw)
-    hp = _col_reduce(uo * uo, Mf)
-
-    @pl.when(im == 0)
-    def _init():
-        g_ref[...] = jnp.zeros_like(g_ref)
-        h_ref[...] = jnp.zeros_like(h_ref)
-
-    g_ref[...] += gp
-    h_ref[...] += hp
-
-
-def _vsweep_kernel(Rd_ref, u_ref, g_ref, h_ref):
-    im = pl.program_id(1)
-    f32 = jnp.float32
-    Rf32 = Rd_ref[...].astype(f32)
-    isn = jnp.isnan(Rf32)
-    Rf = jnp.where(isn, jnp.float32(0), Rf32)
-    Mf = (~isn).astype(f32)
-    u = u_ref[...]                       # (1, bm)
-    gp = _col_reduce(u, Rf)
-    hp = _col_reduce(u * u, Mf)
-
-    @pl.when(im == 0)
-    def _init():
-        g_ref[...] = jnp.zeros_like(g_ref)
-        h_ref[...] = jnp.zeros_like(h_ref)
-
-    g_ref[...] += gp
-    h_ref[...] += hp
-
-
-def _usweep_kernel(Rd_ref, v_ref, g_ref, h_ref):
-    jw = pl.program_id(1)
-    f32 = jnp.float32
-    Rf32 = Rd_ref[...].astype(f32)
-    isn = jnp.isnan(Rf32)
-    Rf = jnp.where(isn, jnp.float32(0), Rf32)
-    Mf = (~isn).astype(f32)
-    v = v_ref[...]                       # (1, bw)
-    gp = _row_reduce_rowout(v, Rf)                    # (1, bm)
-    hp = _row_reduce_rowout(v * v, Mf)
-
-    @pl.when(jw == 0)
-    def _init():
-        g_ref[...] = jnp.zeros_like(g_ref)
-        h_ref[...] = jnp.zeros_like(h_ref)
-
-    g_ref[...] += gp
-    h_ref[...] += hp
-
-
-def _pad2(x, bm, bw, fill):
-    M, W = x.shape
-    pm, pw = (-M) % bm, (-W) % bw
-    if pm or pw:
-        x = jnp.pad(x, ((0, pm), (0, pw)), constant_values=fill)
-    return x
-
-
-def _row_flat(x, Mp):
-    """(M,) f32 vector -> (1, Mp) row form (zero-padded). Blocks of shape
-    (1, bm) then satisfy Mosaic's sublane rule (block dim 1 == array dim 1)
-    while keeping the vector lane-major — a (Mp, 1) column would be
-    lane-padded 1->128 on every per-step DMA."""
-    return jnp.pad(x.astype(jnp.float32), (0, Mp - x.shape[0]))[None, :]
+    steps, n_chunks = vsweep_chunks(M, W, bm, bw)
+    part = jax.ShapeDtypeStruct((n_chunks, W), f32)
+    out_shape = ([jax.ShapeDtypeStruct(Rd.shape, Rd.dtype)] if update
+                 else []) + [part, part]
+    outs = pl.pallas_call(
+        functools.partial(_vsweep_kernel, bm=bm, bw=bw, steps=steps,
+                          update=update),
+        grid=(pl.cdiv(W, bw), n_chunks),
+        out_shape=out_shape,
+        input_output_aliases={0: 0} if update else {},
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS),
+        interpret=_interpret(interpret),
+        name="panel_update_vsweep" if update else "panel_vsweep",
+    )(Rd, u_old.astype(f32), u_pend.astype(f32), v_old.astype(f32),
+      v_pend.astype(f32))
+    *Rn, g, h = outs
+    return (*Rn, g.sum(axis=0), h.sum(axis=0))
 
 
 @functools.partial(jax.jit, static_argnames=("interpret", "bm", "bw"))
 def panel_update_vsweep(Rd, u_old, u_pend, v_old, v_pend, *,
-                        interpret: bool = False, bm: int = BM, bw: int = BW):
+                        interpret: bool | None = None, bm: int = BM,
+                        bw: int = BW):
     """Fused residual update + v-sweep partials for one NaN-sentinel panel.
 
     Rd (M, W) storage dtype; u_* (M,) f32; v_* (W,) f32. Returns
     (Rd_new, g, h): g[j] = Σ_i u_old[i]·R_new[i,j]·mask, h[j] = Σ_i
-    u_old[i]²·mask — identical math to the XLA einsum path, blocked
-    f32 accumulation order.
+    u_old[i]²·mask — the XLA path's math with a blocked f32 summation
+    order. The residual is updated in place when the caller donates it.
     """
-    M, W = Rd.shape
-    bm_, bw_ = min(bm, M), min(bw, W)
-    Rp = _pad2(Rd, bm_, bw_, jnp.nan)    # pad cells: unobserved
-    Mp, Wp = Rp.shape
-    f32 = jnp.float32
-    uo = _row_flat(u_old, Mp)
-    up = _row_flat(u_pend, Mp)
-    vo = _pad2(v_old.astype(f32)[None, :], 1, bw_, 0.0)
-    vp = _pad2(v_pend.astype(f32)[None, :], 1, bw_, 0.0)
-    grid = (Wp // bw_, Mp // bm_)        # rows innermost: g/h accumulate
-    Rn, g, h = pl.pallas_call(
-        _uv_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((bm_, bw_), lambda jw, im: (im, jw)),
-            pl.BlockSpec((1, bm_), lambda jw, im: (0, im)),
-            pl.BlockSpec((1, bm_), lambda jw, im: (0, im)),
-            pl.BlockSpec((1, bw_), lambda jw, im: (0, jw)),
-            pl.BlockSpec((1, bw_), lambda jw, im: (0, jw)),
-        ],
-        out_specs=[
-            pl.BlockSpec((bm_, bw_), lambda jw, im: (im, jw)),
-            pl.BlockSpec((1, bw_), lambda jw, im: (0, jw)),
-            pl.BlockSpec((1, bw_), lambda jw, im: (0, jw)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((Mp, Wp), Rd.dtype),
-            jax.ShapeDtypeStruct((1, Wp), f32),
-            jax.ShapeDtypeStruct((1, Wp), f32),
-        ],
-        input_output_aliases={0: 0},     # residual updated in place
-        cost_estimate=pl.CostEstimate(
-            flops=11 * Mp * Wp,
-            bytes_accessed=2 * Mp * Wp * Rd.dtype.itemsize,
-            transcendentals=0),
-        interpret=interpret,
-    )(Rp, uo, up, vo, vp)
-    return Rn[:M, :W], g[0, :W], h[0, :W]
+    return _vsweep_call(Rd, u_old, u_pend, v_old, v_pend, update=True,
+                        interpret=interpret, bm=bm, bw=bw)
 
 
 @functools.partial(jax.jit, static_argnames=("interpret", "bm", "bw"))
-def panel_vsweep(Rd, u, *, interpret: bool = False, bm: int = BM,
+def panel_vsweep(Rd, u, *, interpret: bool | None = None, bm: int = BM,
                  bw: int = BW):
     """v-sweep partials only (inner iterations i > 0, where no residual
     update precedes the sweep): g[j] = Σ_i u[i]·R_masked[i,j], h[j] =
     Σ_i u[i]²·mask[i,j]. One read pass."""
-    M, W = Rd.shape
-    bm_, bw_ = min(bm, M), min(bw, W)
-    Rp = _pad2(Rd, bm_, bw_, jnp.nan)
-    Mp, Wp = Rp.shape
-    f32 = jnp.float32
-    uu = _row_flat(u, Mp)
-    grid = (Wp // bw_, Mp // bm_)        # rows innermost: g/h accumulate
-    g, h = pl.pallas_call(
-        _vsweep_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((bm_, bw_), lambda jw, im: (im, jw)),
-            pl.BlockSpec((1, bm_), lambda jw, im: (0, im)),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, bw_), lambda jw, im: (0, jw)),
-            pl.BlockSpec((1, bw_), lambda jw, im: (0, jw)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, Wp), f32),
-            jax.ShapeDtypeStruct((1, Wp), f32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=6 * Mp * Wp,
-            bytes_accessed=Mp * Wp * Rd.dtype.itemsize,
-            transcendentals=0),
-        interpret=interpret,
-    )(Rp, uu)
-    return g[0, :W], h[0, :W]
+    zw = jnp.zeros(Rd.shape[1], jnp.float32)
+    return _vsweep_call(Rd, u, u, zw, zw, update=False,
+                        interpret=interpret, bm=bm, bw=bw)
 
 
 @functools.partial(jax.jit, static_argnames=("interpret", "bm", "bw"))
-def panel_usweep(Rd, v, *, interpret: bool = False, bm: int = BM,
+def panel_usweep(Rd, v, *, interpret: bool | None = None, bm: int = BM,
                  bw: int = BW):
     """u-sweep partials for one NaN-sentinel panel: g[i] = Σ_j
-    R_masked[i,j]·v[j], h[i] = Σ_j mask[i,j]·v[j]². One read pass; the
-    per-row outputs come back as (1, Mp) rows from the kernel (a (M, 1)
-    column output would be 128x lane-padded on every flush)."""
-    M, W = Rd.shape
-    bm_, bw_ = min(bm, M), min(bw, W)
-    Rp = _pad2(Rd, bm_, bw_, jnp.nan)
-    Mp, Wp = Rp.shape
+    R_masked[i,j]·v[j], h[i] = Σ_j mask[i,j]·v[j]². One read pass."""
+    M, _ = Rd.shape
     f32 = jnp.float32
-    vv = _pad2(v.astype(f32)[None, :], 1, bw_, 0.0)
-    grid = (Mp // bm_, Wp // bw_)        # cols innermost: g/h accumulate
-    g, h = pl.pallas_call(
-        _usweep_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((bm_, bw_), lambda im, jw: (im, jw)),
-            pl.BlockSpec((1, bw_), lambda im, jw: (0, jw)),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, bm_), lambda im, jw: (0, im)),
-            pl.BlockSpec((1, bm_), lambda im, jw: (0, im)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, Mp), f32),
-            jax.ShapeDtypeStruct((1, Mp), f32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=6 * Mp * Wp,
-            bytes_accessed=Mp * Wp * Rd.dtype.itemsize,
-            transcendentals=0),
-        interpret=interpret,
-    )(Rp, vv)
-    return g[0, :M], h[0, :M]
+    vec = jax.ShapeDtypeStruct((M,), f32)
+    return pl.pallas_call(
+        functools.partial(_usweep_kernel, bm=bm, bw=bw),
+        grid=(pl.cdiv(M, bm),),
+        out_shape=[vec, vec],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS),
+        interpret=_interpret(interpret),
+        name="panel_usweep",
+    )(Rd, v.astype(f32))

@@ -2,7 +2,7 @@
 
 Each device owns a contiguous slot block of both factor tables and the
 matching ELL bucket rows (round-robin degree-balanced, data/ell.py). One ALS
-half-iteration all-gathers the OPPOSITE side's factor table over ICI
+half-iteration all-gathers the OPPOSITE side's factor table
 ((n_slots, k) floats — the only communication), then assembles grams and
 solves the k×k systems entirely locally. Gauss-Seidel across sides is
 preserved: the H update all-gathers the freshly computed W
@@ -32,7 +32,7 @@ from .mesh import AXIS, ell_shardings
 
 
 def make_sharded_als_step(ell: EllPair, mesh: Mesh, lam: float, chunk: int,
-                          axis: str = AXIS, solver: str = "gj",
+                          axis: str = AXIS, solver: str = "lax",
                           precision_name: str = "highest",
                           group_bytes: int | None = None):
     rows, cols = ell.rows_side.local_view(), ell.cols_side.local_view()
@@ -47,9 +47,9 @@ def make_sharded_als_step(ell: EllPair, mesh: Mesh, lam: float, chunk: int,
 
     def step_local(idx_r, idx_c, vals_r, vals_c, W, H, nnz_r, nnz_c):
         W = _solve_side(idx_r, vals_r, rows, gather_table(H), lam_, nnz_r,
-                        chunk, prec, solver, None, gb)
+                        chunk, prec, solver, gb)
         H = _solve_side(idx_c, vals_c, cols, gather_table(W), lam_, nnz_c,
-                        chunk, prec, solver, None, gb)
+                        chunk, prec, solver, gb)
         return W, H
 
     nb_r, nb_c = len(rows.buckets), len(cols.buckets)

@@ -9,7 +9,7 @@ so each device's factor slots are one contiguous block and
 plain concat. Per rank sweep:
 
   * the swept side's updates are local to each shard (its slot block);
-  * the opposite-side vector is all-gathered over ICI (the only communication,
+  * the opposite-side vector is all-gathered (the only communication,
     2-3 gathers of (n_slots,) floats per rank);
   * residual bucket tiles are updated locally — never communicated.
 
@@ -66,8 +66,7 @@ def make_sharded_ell_step(ell: EllPair, mesh: Mesh, lam: float,
                     # add-back + sweep, ALL inside one fused pass off a
                     # stacked all_gather of [u_pend, u_old]
                     # (solvers/ccd_ell.py; a gathered tile fed to >1
-                    # consumer re-runs the gather per consumer —
-                    # results/residual_update_micro_r3.json)
+                    # consumer re-runs the gather per consumer)
                     vals_c, g, h = fused_update_sweep(
                         idx_c, vals_c, cols, gather_stack((u_pend, u_old)),
                         owns=(v_pend, v_old), signs=(-1.0, 1.0), sweep_col=1)

@@ -9,7 +9,7 @@ and never communicated. The factor tables W (k, m) / H (k, n) are
 REPLICATED (a rank's vectors are ~2 MB at Netflix scale — tiny next to the
 per-rank compute): each device computes partial per-entity sweep sums
 (g, h) from its panel blocks + its ELL rows, and ONE ``psum`` per half-sweep
-(a few MB over ICI) makes the new factor vector identical everywhere. This
+(a few MB) makes the new factor vector identical everywhere. This
 is the communication-minimal layout for a doubly-sharded residual: ratings
 never move, only (m,)/(n,)-sized partial vectors do.
 
@@ -43,7 +43,9 @@ from ..eval.metrics import calrmse_device, default_eval_chunk
 from ..ops.ell_ops import (extend_zero, fused_sweep, fused_update_sweep,
                            paired_gather, residual_update, stacked_remap,
                            sweep_partials)
-from ..solvers.ccd_hybrid import HybridPlan, densify_panels, plan_hybrid
+from ..solvers.ccd_hybrid import (HybridPlan, densify_panels,
+                                  panel_col_sums, panel_row_sums,
+                                  plan_hybrid)
 from ..solvers.pipeline import pipelined_loop
 from ..solvers.reference import IterStats
 from .mesh import AXIS
@@ -54,11 +56,9 @@ def make_sharded_hybrid_step(plan: HybridPlan, mesh: Mesh, lam: float,
                              axis: str = AXIS, nan_mask: bool = False,
                              panel_kernel: bool = False, nmf: bool = False):
     """``panel_kernel``: each device runs the fused Pallas panel passes
-    (ops/panel_pallas.py) on its LOCAL block-padded row block — the
-    residual update is fused into the first v-sweep kernel and the mask is
-    derived in-register from the NaN sentinel; the psum collective pattern
-    is unchanged. Panels must be per-shard block-padded
-    (densify_panels(block_pad=True, num_shards=N))."""
+    (ops/panel_pallas.py) on its LOCAL row block — the residual update is
+    fused into the first v-sweep kernel and the mask is derived in-register
+    from the NaN sentinel; the psum collective pattern is unchanged."""
     if panel_kernel and not nan_mask:
         raise ValueError("panel_kernel requires nan_mask")
     rows_g, cols_g = plan.ell.rows_side, plan.ell.cols_side
@@ -71,7 +71,6 @@ def make_sharded_hybrid_step(plan: HybridPlan, mesh: Mesh, lam: float,
     m = plan.row_nnz.shape[0]
     n = plan.col_nnz.shape[0]
     f32 = jnp.float32
-    interp = jax.default_backend() == "cpu"
 
     def step_local(idx_r, idx_c, Rds, masks, vals_r, vals_c, W, H,
                    u_pend, v_pend, row_nnz, col_nnz,
@@ -80,14 +79,6 @@ def make_sharded_hybrid_step(plan: HybridPlan, mesh: Mesh, lam: float,
         lsu_, lsi_ = lsu[0], lsi[0]
         if nan_mask:
             masks = (None,) * len(panels)
-
-        def panel_view(Rd, mask):
-            """f32 (residual, mask) operands for the sweep einsums."""
-            if mask is None:
-                isn = jnp.isnan(Rd)
-                return (jnp.where(isn, jnp.float32(0), Rd.astype(f32)),
-                        (~isn).astype(f32))
-            return Rd.astype(f32), mask.astype(f32)
 
         def panel_rows(x, r0, lr):
             return jax.lax.dynamic_slice(x, (r0 + d * lr,), (lr,))
@@ -132,30 +123,25 @@ def make_sharded_hybrid_step(plan: HybridPlan, mesh: Mesh, lam: float,
                             Rd, gp, hp = panel_update_vsweep(
                                 Rd, panel_rows(u_old, r0, lr),
                                 panel_rows(u_pend, r0, lr),
-                                v_old[:w], v_pend[:w], interpret=interp)
+                                v_old[:w], v_pend[:w])
                             new_Rds[pi] = Rd
                         else:
                             gp, hp = panel_vsweep(
-                                Rd, panel_rows(u, r0, lr), interpret=interp)
-                        g = g.at[:w].add(gp[:w])
-                        h = h.at[:w].add(hp[:w])
+                                Rd, panel_rows(u, r0, lr))
+                        g = g.at[:w].add(gp)
+                        h = h.at[:w].add(hp)
                     Rds = tuple(new_Rds)
                 else:
                     for (r0, r1, w), Rd, mask in zip(panels, Rds, masks):
                         lr = (r1 - r0) // N
-                        ul = panel_rows(u, r0, lr)
-                        Rf, Mf = panel_view(Rd, mask)
-                        gp = jnp.einsum("m,mn->n", ul, Rf,
-                                        preferred_element_type=f32)
-                        hp = jnp.einsum("m,mn->n", ul * ul, Mf,
-                                        preferred_element_type=f32)
+                        gp, hp = panel_col_sums(panel_rows(u, r0, lr), Rd,
+                                                mask)
                         g = g.at[:w].add(gp)
                         h = h.at[:w].add(hp)
                 if have_light:
                     if i == 0:
-                        # fused single-consumer pass (see ccd_hybrid.py /
-                        # results/residual_update_micro_r3.json); entity
-                        # vectors remapped to LOCAL slots via eosi
+                        # fused single-consumer pass (see ccd_hybrid.py);
+                        # entity vectors remapped to LOCAL slots via eosi
                         ovp, ovo = stacked_remap((v_pend, v_old), eosi)
                         vals_c, g_l, h_l = fused_update_sweep(
                             idx_c, vals_c, cols,
@@ -181,18 +167,14 @@ def make_sharded_hybrid_step(plan: HybridPlan, mesh: Mesh, lam: float,
                     from ..ops.panel_pallas import panel_usweep
                     for (r0, r1, w), Rd in zip(panels, Rds):
                         lr = (r1 - r0) // N
-                        gp, hp = panel_usweep(Rd, v[:w], interpret=interp)
+                        gp, hp = panel_usweep(Rd, v[:w])
                         off = r0 + d * lr
-                        gu = jax.lax.dynamic_update_slice(gu, gp[:lr], (off,))
-                        hu = jax.lax.dynamic_update_slice(hu, hp[:lr], (off,))
+                        gu = jax.lax.dynamic_update_slice(gu, gp, (off,))
+                        hu = jax.lax.dynamic_update_slice(hu, hp, (off,))
                 else:
                     for (r0, r1, w), Rd, mask in zip(panels, Rds, masks):
                         lr = (r1 - r0) // N
-                        Rf, Mf = panel_view(Rd, mask)
-                        gp = jnp.einsum("mn,n->m", Rf, v[:w],
-                                        preferred_element_type=f32)
-                        hp = jnp.einsum("mn,n->m", Mf, v[:w] * v[:w],
-                                        preferred_element_type=f32)
+                        gp, hp = panel_row_sums(Rd, mask, v[:w])
                         off = r0 + d * lr
                         gu = jax.lax.dynamic_update_slice(gu, gp, (off,))
                         hu = jax.lax.dynamic_update_slice(hu, hp, (off,))
@@ -246,7 +228,7 @@ def make_sharded_hybrid_phase_fns(plan: HybridPlan, mesh: Mesh, lam: float,
                                   nan_mask: bool = False, nmf: bool = False):
     """Phase-split (addback / sweeps / subtract) shard_map dispatches for
     the SHARDED hybrid step — multi-chip telemetry parity with the
-    single-device make_hybrid_phase_fns (VERDICT r3 next #8): each phase is
+    single-device make_hybrid_phase_fns: each phase is
     one fence-able collective dispatch over the mesh, so the iteration
     line's rank_time/update_time split (the reference's per-phase GpuTimer,
     /root/reference/cuda_src/CCD_CUDA.cu:336-381, printed at
@@ -266,13 +248,6 @@ def make_sharded_hybrid_phase_fns(plan: HybridPlan, mesh: Mesh, lam: float,
     m = plan.row_nnz.shape[0]
     n = plan.col_nnz.shape[0]
     f32 = jnp.float32
-
-    def panel_view(Rd, mask):
-        if mask is None:
-            isn = jnp.isnan(Rd)
-            return (jnp.where(isn, jnp.float32(0), Rd.astype(f32)),
-                    (~isn).astype(f32))
-        return Rd.astype(f32), mask.astype(f32)
 
     def _update_local(idx_r, idx_c, Rds, masks, vals_r, vals_c, W, H, t,
                       sign, eosr, eosi):
@@ -317,11 +292,9 @@ def make_sharded_hybrid_phase_fns(plan: HybridPlan, mesh: Mesh, lam: float,
             for (r0, r1, w), Rd, mask in zip(panels, Rds, masks):
                 lr = (r1 - r0) // N
                 ul = jax.lax.dynamic_slice(u, (r0 + d * lr,), (lr,))
-                Rf, Mf = panel_view(Rd, mask)
-                g = g.at[:w].add(jnp.einsum("m,mn->n", ul, Rf,
-                                            preferred_element_type=f32))
-                h = h.at[:w].add(jnp.einsum("m,mn->n", ul * ul, Mf,
-                                            preferred_element_type=f32))
+                gp, hp = panel_col_sums(ul, Rd, mask)
+                g = g.at[:w].add(gp)
+                h = h.at[:w].add(hp)
             if have_light:
                 pc = paired_gather(extend_zero(jnp.stack([u, u], -1)),
                                    idx_c)
@@ -340,11 +313,7 @@ def make_sharded_hybrid_phase_fns(plan: HybridPlan, mesh: Mesh, lam: float,
             hu = jnp.zeros(m, f32)
             for (r0, r1, w), Rd, mask in zip(panels, Rds, masks):
                 lr = (r1 - r0) // N
-                Rf, Mf = panel_view(Rd, mask)
-                gp = jnp.einsum("mn,n->m", Rf, v[:w],
-                                preferred_element_type=f32)
-                hp = jnp.einsum("mn,n->m", Mf, v[:w] * v[:w],
-                                preferred_element_type=f32)
+                gp, hp = panel_row_sums(Rd, mask, v[:w])
                 off = r0 + d * lr
                 gu = jax.lax.dynamic_update_slice(gu, gp, (off,))
                 hu = jax.lax.dynamic_update_slice(hu, hp, (off,))
@@ -422,9 +391,7 @@ def ccd_hybrid_train_sharded(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
     idx_r = tuple(jax.device_put(b.idx, shard) for b in rows_g.buckets)
     idx_c = tuple(jax.device_put(b.idx, shard) for b in cols_g.buckets)
     dense_Rds, masks = densify_panels(plan, rdt, sharding=shard,
-                                      mask_dtype=cfg.mask_dtype,
-                                      block_pad=cfg.hybrid_panel_kernel,
-                                      num_shards=N)
+                                      mask_dtype=cfg.mask_dtype)
 
     W0 = np.asarray(W0, np.float32)
     start_oiter = 1

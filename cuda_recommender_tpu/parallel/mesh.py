@@ -1,11 +1,12 @@
 """Device mesh setup and sharding specs.
 
 The reference is single-GPU by construction (``cudaSetDevice(0)``,
-/root/reference/cuda_src/CCD_CUDA.cu:170) — this layer is new TPU-native
-design (SURVEY.md §2 parallelism inventory): a 1-D mesh over all chips,
-factor tables row-sharded in slot space, rating buckets row-sharded, dense
-residuals user-sharded. Collectives are XLA's (`all_gather`/`psum`) over ICI —
-there is no hand-rolled transport.
+/root/reference/cuda_src/CCD_CUDA.cu:170) — this layer is new design
+(SURVEY.md §2 parallelism inventory): a 1-D mesh over all devices, factor
+tables row-sharded in slot space, rating buckets row-sharded, dense residuals
+user-sharded. Collectives are XLA's (`all_gather`/`psum`, NCCL on GPUs) —
+there is no hand-rolled transport. Every card reaches every other at the
+same rate, so the mesh follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ def make_mesh(devices: Optional[Sequence] = None, axis_name: str = AXIS) -> Mesh
 def dense_ccd_shardings(mesh: Mesh, axis_name: str = AXIS) -> dict:
     """Sharding dict consumed by solvers.ccd_dense.ccd_dense_train:
     residual/mask user-row-sharded, W sharded over users, H replicated (the
-    v-sweep's psum over user partials rides ICI; the u-sweep is local)."""
+    v-sweep takes a psum over user partials; the u-sweep is local)."""
     return {
         "rowmat": NamedSharding(mesh, P(axis_name, None)),
         "rowvec": NamedSharding(mesh, P(axis_name)),
@@ -55,8 +56,8 @@ def dense_ccd_shardings_2d(mesh: Mesh) -> dict:
     """2-D dense CCD sharding: residual/mask blocked (users, items), W
     sharded over the user axis, H over the item axis. XLA inserts the
     v-sweep's psum over the user axis and the u-sweep's over the item axis
-    (both ride ICI); every chip holds an (m/a, n/b) residual block — the
-    layout that scales Netflix-sized dense residuals past one chip's HBM."""
+    ; every device holds an (m/a, n/b) residual block — the layout that
+    scales Netflix-sized dense residuals past one device's memory."""
     ua, ia = mesh.axis_names
     a, b = mesh.devices.shape
     return {

@@ -1,9 +1,9 @@
 """Multi-host execution: process-group init and host-local shard placement.
 
 The reference has no distributed story (single GPU hard-coded,
-/root/reference/cuda_src/CCD_CUDA.cu:170). This is the new TPU-native layer:
-``jax.distributed.initialize`` forms the process group (ICI within a slice,
-DCN across), and every host feeds ONLY its local devices' shard rows of the
+/root/reference/cuda_src/CCD_CUDA.cu:170). This is the new layer:
+``jax.distributed.initialize`` forms the process group, and every host
+feeds ONLY its local devices' shard rows of the
 ELL buckets / factor blocks — ``assemble_global`` stitches host-local numpy
 blocks into one global jax.Array without any host ever materializing the full
 dataset. The solvers are shard-count-agnostic: the same shard_map step runs

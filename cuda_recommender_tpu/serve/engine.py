@@ -11,8 +11,8 @@ file scoring only):
   * factor tables are uploaded ONCE at construction and stay device-resident
     (optionally int8-quantized, retrieval.quantize_item_table);
   * a query is ONE dispatch: gather the user row (or take a provided
-    vector), one (n, k) x (k,) matvec, one lax.top_k / lax.approx_max_k over
-    the full score vector — at B=1 the (n,) scores are a few MB, so the
+    vector), one (n, k) x (k,) matvec, one lax.top_k over the full score
+    vector — at B=1 the (n,) scores are a few MB, so the
     chunked-merge machinery buys nothing and costs a scan;
   * per-user exclusions (seen-item filtering) run host-side on an
     over-fetched candidate set, keeping the device program branch-free and
@@ -32,28 +32,26 @@ import jax.numpy as jnp
 import numpy as np
 
 from .retrieval import quantize_item_table
-from .scoring import as_entity_major
+from .scoring import SCORE_PRECISION, as_entity_major
 
 
-@functools.partial(jax.jit, static_argnames=("fetch", "approx"))
-def _query_f32(u: jnp.ndarray, H_em: jnp.ndarray, *, fetch: int,
-               approx: bool) -> tuple[jnp.ndarray, jnp.ndarray]:
+@functools.partial(jax.jit, static_argnames=("fetch",))
+def _query_f32(u: jnp.ndarray, H_em: jnp.ndarray, *,
+               fetch: int) -> tuple[jnp.ndarray, jnp.ndarray]:
     """(scores, ids) of the top-``fetch`` items for one query vector u (k,)."""
-    s = jnp.einsum("nk,k->n", H_em, u, preferred_element_type=jnp.float32)
-    if approx:
-        return jax.lax.approx_max_k(s, fetch, recall_target=0.99)
+    s = jnp.einsum("nk,k->n", H_em, u, preferred_element_type=jnp.float32,
+                   precision=SCORE_PRECISION)
     return jax.lax.top_k(s, fetch)
 
 
-@functools.partial(jax.jit, static_argnames=("fetch", "approx"))
+@functools.partial(jax.jit, static_argnames=("fetch",))
 def _query_int8(u: jnp.ndarray, Hq: jnp.ndarray, scale: jnp.ndarray, *,
-                fetch: int, approx: bool) -> tuple[jnp.ndarray, jnp.ndarray]:
+                fetch: int) -> tuple[jnp.ndarray, jnp.ndarray]:
     """int8 table variant: dequantize in-register (fuses into the matvec —
-    the pass reads 1/4 the HBM of f32)."""
+    the pass reads 1/4 the bytes of f32)."""
     s = jnp.einsum("nk,k->n", Hq.astype(jnp.float32), u,
-                   preferred_element_type=jnp.float32) * scale
-    if approx:
-        return jax.lax.approx_max_k(s, fetch, recall_target=0.99)
+                   preferred_element_type=jnp.float32,
+                   precision=SCORE_PRECISION) * scale
     return jax.lax.top_k(s, fetch)
 
 
@@ -72,13 +70,10 @@ class RetrievalEngine:
         vector-only engine (queries must then pass ``u_vec``).
     int8 : quantize the item table per-item (4x smaller device footprint;
         identical quantization to the batch int8 kernel).
-    approx : use lax.approx_max_k instead of exact top-k. Measured on v5e:
-        wins at large catalogs (1M items: 21.7k vs 8.7k QPS batch), loses at
-        small ones where the exact sort is already cheap.
     """
 
     def __init__(self, W, H, *, entity_major: bool = True,
-                 int8: bool = False, approx: bool = False):
+                 int8: bool = False):
         if W is None:
             H_em = np.asarray(H, np.float32)
             H_em = H_em if entity_major else np.ascontiguousarray(H_em.T)
@@ -88,7 +83,6 @@ class RetrievalEngine:
             self._W = jax.device_put(W_em)
         self.n_items, self.k = H_em.shape
         self.int8 = bool(int8)
-        self.approx = bool(approx)
         if int8:
             Hq, scale = quantize_item_table(H_em)
             self._Hq = jax.device_put(Hq)
@@ -99,9 +93,8 @@ class RetrievalEngine:
     # -- internal ---------------------------------------------------------
     def _dispatch(self, u: jnp.ndarray, fetch: int):
         if self.int8:
-            return _query_int8(u, self._Hq, self._scale, fetch=fetch,
-                               approx=self.approx)
-        return _query_f32(u, self._H, fetch=fetch, approx=self.approx)
+            return _query_int8(u, self._Hq, self._scale, fetch=fetch)
+        return _query_f32(u, self._H, fetch=fetch)
 
     def _uvec(self, user, u_vec):
         if (user is None) == (u_vec is None):

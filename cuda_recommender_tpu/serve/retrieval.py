@@ -1,12 +1,10 @@
 """MIPS top-k candidate retrieval over the item factor table.
 
-The north-star serving path (BASELINE.json): given trained factors, retrieve
-the top-k maximum-inner-product items per query user. TPU-native design:
-stream the item table in lane-aligned chunks through the MXU ((B, k) x
-(k, C) scores per chunk) and maintain a running top-k via merge-and-select
-inside one jitted lax.scan — the full (B, n) score matrix never materializes
-in HBM, so catalogs scale past VMEM/HBM limits and the work stays
-matmul-bound. Sharded serving splits the item table across devices
+The north-star serving path: given trained factors, retrieve the top-k
+maximum-inner-product items per query user. Design: stream the item table in
+chunks ((B, k) x (k, C) scores per chunk) and maintain a running top-k via
+merge-and-select inside one jitted lax.scan — the full (B, n) score matrix
+never materializes in device memory, so catalogs scale past it. Sharded serving splits the item table across devices
 (shard_map), runs the same streaming kernel per shard, then merges the
 per-shard top-k — an all_gather of (B, topk) candidates, not scores.
 """
@@ -19,23 +17,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .scoring import as_entity_major
+from .scoring import SCORE_PRECISION, as_entity_major
 
 NEG = jnp.float32(-3.4e38)
 
 
-def _merge_topk(best_s, best_i, s, ids, topk: int, approx: bool):
-    """Merge one chunk's scores into the running (B, topk) state.
-
-    Exact mode sorts the full (B, topk + chunk) candidate set with
-    lax.top_k — an O(chunk) VPU sort network per step that dominates
-    large-catalog QPS (measured: 1M items x k=64 is merge-bound, f32 ==
-    int8 at 8.7k q/s). Approx mode first reduces the chunk with the
-    TPU-native ``lax.approx_max_k`` (the hardware-friendly partial-sort;
-    recall_target 0.99 per chunk), then exact-merges only (B, 2·topk)."""
-    if approx and topk <= s.shape[1] // 2:   # else exact merge is cheaper
-        s, pos = jax.lax.approx_max_k(s, topk, recall_target=0.99)
-        ids = jnp.take_along_axis(ids, pos, axis=1)
+def _merge_topk(best_s, best_i, s, ids, topk: int):
+    """Merge one chunk's scores into the running (B, topk) state: exact
+    lax.top_k over the (B, topk + chunk) candidate set."""
     cand_s = jnp.concatenate([best_s, s], axis=1)
     cand_i = jnp.concatenate([best_i, ids], axis=1)
     top_s, pos = jax.lax.top_k(cand_s, topk)
@@ -43,16 +32,14 @@ def _merge_topk(best_s, best_i, s, ids, topk: int, approx: bool):
     return top_s, top_i
 
 
-@functools.partial(jax.jit, static_argnames=("topk", "chunk", "approx"))
+@functools.partial(jax.jit, static_argnames=("topk", "chunk"))
 def topk_mips_device(U: jnp.ndarray, H_em: jnp.ndarray, *, topk: int,
-                     chunk: int,
-                     approx: bool = False) -> tuple[jnp.ndarray, jnp.ndarray]:
+                     chunk: int) -> tuple[jnp.ndarray, jnp.ndarray]:
     """(scores, item_ids) of the top-``topk`` inner products per query row.
 
     U (B, k) query factors; H_em (n, k) item table with n a multiple of
     ``chunk`` (caller pads with NEG-scored rows). Running top-k state is
-    (B, topk); each scan step scores one chunk on the MXU and merges
-    (``approx=True`` = lax.approx_max_k chunk reduction, see _merge_topk).
+    (B, topk); each scan step scores one chunk and merges.
     """
     n = H_em.shape[0]
     Hc = H_em.reshape(n // chunk, chunk, H_em.shape[1])
@@ -61,9 +48,10 @@ def topk_mips_device(U: jnp.ndarray, H_em: jnp.ndarray, *, topk: int,
     def body(carry, xs):
         best_s, best_i = carry
         Hb, base = xs
-        s = jnp.einsum("bk,ck->bc", U, Hb, preferred_element_type=jnp.float32)
+        s = jnp.einsum("bk,ck->bc", U, Hb, preferred_element_type=jnp.float32,
+                       precision=SCORE_PRECISION)
         ids = base + jax.lax.broadcasted_iota(jnp.int32, (B, chunk), 1)
-        return _merge_topk(best_s, best_i, s, ids, topk, approx), None
+        return _merge_topk(best_s, best_i, s, ids, topk), None
 
     init = (jnp.full((B, topk), NEG), jnp.full((B, topk), -1, jnp.int32))
     bases = (jnp.arange(n // chunk, dtype=jnp.int32) * chunk)
@@ -73,8 +61,8 @@ def topk_mips_device(U: jnp.ndarray, H_em: jnp.ndarray, *, topk: int,
 
 def quantize_item_table(H_em: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Symmetric per-item int8 quantization of the item factor table
-    (ARCHITECTURE roadmap: 4x smaller HBM footprint for large catalogs;
-    retrieval reads int8 rows from HBM and dequantizes in-register).
+    (4x smaller device footprint for large catalogs; retrieval reads int8
+    rows and dequantizes in-register).
 
     Returns (Hq int8 (n, k), scale f32 (n,)) with
     H[j] ≈ Hq[j] * scale[j]."""
@@ -85,16 +73,13 @@ def quantize_item_table(H_em: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return Hq, scale
 
 
-@functools.partial(jax.jit, static_argnames=("topk", "chunk", "approx"))
+@functools.partial(jax.jit, static_argnames=("topk", "chunk"))
 def topk_mips_device_int8(U: jnp.ndarray, Hq: jnp.ndarray,
-                          scale: jnp.ndarray, *, topk: int, chunk: int,
-                          approx: bool = False
+                          scale: jnp.ndarray, *, topk: int, chunk: int
                           ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Streaming top-k over an int8-quantized item table: identical merge
-    structure to topk_mips_device, but each chunk streams int8 rows out of
-    HBM (1/4 the bandwidth of f32) and dequantizes in-register — the
-    conversion fuses into the matmul, so the pass stays memory-bound on a
-    4x smaller table."""
+    structure to topk_mips_device, but each chunk streams int8 rows (1/4
+    the bytes of f32) and dequantizes in-register."""
     n = Hq.shape[0]
     Hc = Hq.reshape(n // chunk, chunk, Hq.shape[1])
     Sc = scale.reshape(n // chunk, chunk)
@@ -104,9 +89,10 @@ def topk_mips_device_int8(U: jnp.ndarray, Hq: jnp.ndarray,
         best_s, best_i = carry
         Hb, sc, base = xs
         s = jnp.einsum("bk,ck->bc", U, Hb.astype(jnp.float32),
-                       preferred_element_type=jnp.float32) * sc[None, :]
+                       preferred_element_type=jnp.float32,
+                       precision=SCORE_PRECISION) * sc[None, :]
         ids = base + jax.lax.broadcasted_iota(jnp.int32, (B, chunk), 1)
-        return _merge_topk(best_s, best_i, s, ids, topk, approx), None
+        return _merge_topk(best_s, best_i, s, ids, topk), None
 
     init = (jnp.full((B, topk), NEG), jnp.full((B, topk), -1, jnp.int32))
     bases = (jnp.arange(n // chunk, dtype=jnp.int32) * chunk)
@@ -136,8 +122,7 @@ def _postprocess(s, i, n, topk, user_ids, exclude):
 def topk_mips(W, H, user_ids, *, topk: int = 10, chunk: int = 2048,
               entity_major: bool = True,
               exclude: dict[int, np.ndarray] | None = None,
-              int8: bool = False,
-              approx: bool = False) -> tuple[np.ndarray, np.ndarray]:
+              int8: bool = False) -> tuple[np.ndarray, np.ndarray]:
     """Host API: top-k item retrieval for a batch of users.
 
     ``exclude`` optionally maps user id -> item ids to mask out (e.g. train
@@ -165,9 +150,8 @@ def topk_mips(W, H, user_ids, *, topk: int = 10, chunk: int = 2048,
         s, i = topk_mips_device_int8(jnp.asarray(U), jnp.asarray(Hq),
                                      jnp.asarray(scale),
                                      topk=min(fetch + pad, n + pad),
-                                     chunk=chunk, approx=approx)
+                                     chunk=chunk)
     else:
         s, i = topk_mips_device(jnp.asarray(U), jnp.asarray(Hp),
-                                topk=min(fetch + pad, n + pad), chunk=chunk,
-                                approx=approx)
+                                topk=min(fetch + pad, n + pad), chunk=chunk)
     return _postprocess(s, i, n, topk, user_ids, exclude)

@@ -1,7 +1,7 @@
 """MIPS top-k retrieval over an item table sharded across a device mesh.
 
-The north-star serving configuration (BASELINE.json: "top-k recall@10
-serving over sharded item table"): the item factors are row-sharded over the
+The sharded serving configuration (top-k over an item table sharded across
+devices): the item factors are row-sharded over the
 mesh, each device runs the streaming matmul+merge kernel
 (serve/retrieval.py) against its local block, and only the per-device
 (B, topk) candidates — not scores over the catalog — are gathered and merged.

@@ -1,15 +1,13 @@
-"""ALS — compiled padded-ELL backend (XLA; gram assembly on the MXU).
+"""ALS — compiled padded-ELL backend (XLA).
 
-TPU-native counterpart of the reference's ALS paths
-(/root/reference/src/ALS.cpp:81-233, cuda_src/ALS_CUDA.cu:65-180). The
-reference gives each user/item one CUDA thread that builds a k×k gram from
-CSR-gathered factor rows and inverts it with an in-thread Cholesky; here each
-degree bucket gathers other-side factor ROWS (the fast gather mode on TPU,
-~0.3 G rows/s regardless of width — ARCHITECTURE.md) and assembles every
-slot's gram and right-hand side with batched einsums on the MXU, then solves
-all k×k systems with one batched Cholesky + two triangular solves — a solve,
-not the reference's explicit inverse (src/ALS.cpp:41-64): same math, better
-numerics.
+Counterpart of the reference's ALS paths (/root/reference/src/ALS.cpp:81-233,
+cuda_src/ALS_CUDA.cu:65-180). The reference gives each user/item one CUDA
+thread that builds a k×k gram from CSR-gathered factor rows and inverts it
+with an in-thread Cholesky; here each degree bucket gathers other-side factor
+ROWS and assembles every slot's gram and right-hand side with one batched
+einsum, then solves all k×k systems with a batched solve (Cholesky + two
+triangular solves by default) — a solve, not the reference's explicit
+inverse (src/ALS.cpp:41-64): same math, better numerics.
 
 Semantics preserved (SURVEY.md §7): λ added UNscaled to the gram diagonal
 (src/ALS.cpp:121); empty entities get zero factors (src/ALS.cpp:151-157);
@@ -37,66 +35,36 @@ from .reference import IterStats
 
 
 def _gram_and_rhs(idx, val, other_ext, b, chunk: int,
-                  precision=jax.lax.Precision.HIGHEST,
-                  batch_last: bool = False, augmented: bool = False):
-    """Per-slot gram and rhs for one bucket.
+                  precision=jax.lax.Precision.HIGHEST):
+    """Per-slot augmented gram for one bucket: (S, k+1, k+1) holding the gram
+    in [:, :k, :k] and the right-hand side in [:, :k, k].
 
-    ``batch_last=False``: G (S, k, k), r (S, k). ``batch_last=True``: the
-    Pallas-GJ kernel's native layout G (k, k, S), r (k, S) — emitted
-    DIRECTLY by the assembly einsums so no (S, k, k) -> (k, k, S) relayout
-    pass runs between assembly and solve (measured ~1 GB/side of pure
-    transpose traffic at ml20M k=40).
+    Gram and rhs come from ONE self-contraction of Faug = [F | val]: with two
+    einsums XLA re-runs the row gather once per consumer. Same sums,
+    (k+1)²/k² extra multiply work.
 
-    ``augmented`` (requires batch_last): emit gram AND rhs from ONE
-    self-contraction of Faug = [F | val] — Gaug[a,b,s] = Σ_e
-    Faug[s,e,a]·Faug[s,e,b] holds the gram in [:k,:k] and the rhs in
-    [:k,k]. The two-einsum form makes XLA re-run the row gather once per
-    einsum consumer (the lax.map remat finding generalizes:
-    results/residual_update_micro_r3.json); measured 684 -> 507 ms/iter
-    at ml20M k=40 (scripts/als_assembly_micro.py). Same sums, (k+1)²/k²
-    ≈ 5% extra MXU work; the reduction tiling differs at ULP level, which
-    on sub-1e-3 weakly-determined factor entries can flip 1-2 entries per
-    5000 across the 10% golden bar — measured equally often (6/8 seeds)
-    with the two-einsum form, i.e. inherent to f32-solver-vs-f64-golden
-    comparison (the reference prints the same error percentage in that
-    case, src/extras.cpp:232-236), not a property of the augmentation.
-
-    Padded lanes gather the zero row, contributing exactly 0 to both. Buckets
-    with p == 1 (width E > 128) stream the lane axis in ``chunk``-wide slabs
-    under lax.scan so VMEM pressure stays bounded for power-law head entities.
+    Padded lanes gather the zero row, contributing exactly 0. Buckets with
+    p == 1 (width E > ``chunk``) stream the lane axis in ``chunk``-wide slabs
+    under lax.scan, so the gathered tile stays bounded for power-law head
+    entities.
     """
     k = other_ext.shape[1]
     rows, L = idx.shape
     S = rows * b.p
-    g_spec = "sek,sel->kls" if batch_last else "sek,sel->skl"
-    r_spec = "sek,se->ks" if batch_last else "sek,se->sk"
-    if augmented and not batch_last:
-        raise ValueError("augmented assembly emits batch-last only")
 
     def accumulate(idx2, val2):
         F = other_ext[idx2]                       # (S, E', k) row gather
-        # HIGHEST precision: the default TPU matmul precision feeds the MXU
-        # bf16 inputs, which drifts ~0.4% per solve — enough to fail the
-        # reference's 10% golden bar after a few Gauss-Seidel iterations on
-        # near-zero factor entries. Gram assembly must be true f32.
-        if augmented:
-            Faug = jnp.concatenate([F, val2[..., None]], axis=-1)
-            return jnp.einsum("sea,seb->abs", Faug, Faug,
-                              preferred_element_type=jnp.float32,
-                              precision=precision)
-        G = jnp.einsum(g_spec, F, F, preferred_element_type=jnp.float32,
-                       precision=precision)
-        r = jnp.einsum(r_spec, F, val2, preferred_element_type=jnp.float32,
-                       precision=precision)
-        return G, r
-
-    def split(acc):
-        if augmented:
-            return acc[:k, :k], acc[:k, k]
-        return acc
+        # HIGHEST precision: a reduced-precision matmul (TF32 on NVIDIA
+        # cards) drifts enough per solve to fail the reference's 10% golden
+        # bar after a few Gauss-Seidel iterations on near-zero factor
+        # entries. Gram assembly must be true f32.
+        Faug = jnp.concatenate([F, val2[..., None]], axis=-1)
+        return jnp.einsum("sea,seb->sab", Faug, Faug,
+                          preferred_element_type=jnp.float32,
+                          precision=precision)
 
     if L <= chunk or b.p > 1:
-        return split(accumulate(idx.reshape(S, b.E), val.reshape(S, b.E)))
+        return accumulate(idx.reshape(S, b.E), val.reshape(S, b.E))
 
     # data-driven ladder widths (data/ell.py) need not divide the chunk:
     # scan the full slabs, accumulate the remainder columns directly (they
@@ -106,44 +74,22 @@ def _gram_and_rhs(idx, val, other_ext, b, chunk: int,
     idx_s = idx[:, :nC * chunk].reshape(rows, nC, chunk).transpose(1, 0, 2)
     val_s = val[:, :nC * chunk].reshape(rows, nC, chunk).transpose(1, 0, 2)
 
-    if augmented:
-        def body_a(carry, sl):
-            return carry + accumulate(sl[0], sl[1]), None
-
-        acc, _ = jax.lax.scan(
-            body_a, jnp.zeros((k + 1, k + 1, S), jnp.float32),
-            (idx_s, val_s))
-        if rem:
-            acc = acc + accumulate(idx[:, nC * chunk:], val[:, nC * chunk:])
-        return split(acc)
-
     def body(carry, sl):
-        G, r = carry
-        dG, dr = accumulate(sl[0], sl[1])
-        return (G + dG, r + dr), None
+        return carry + accumulate(sl[0], sl[1]), None
 
-    g_shape = (k, k, S) if batch_last else (S, k, k)
-    r_shape = (k, S) if batch_last else (S, k)
-    (G, r), _ = jax.lax.scan(
-        body,
-        (jnp.zeros(g_shape, jnp.float32), jnp.zeros(r_shape, jnp.float32)),
-        (idx_s, val_s))
+    acc, _ = jax.lax.scan(
+        body, jnp.zeros((S, k + 1, k + 1), jnp.float32), (idx_s, val_s))
     if rem:
-        dG, dr = accumulate(idx[:, nC * chunk:], val[:, nC * chunk:])
-        G, r = G + dG, r + dr
-    return G, r
+        acc = acc + accumulate(idx[:, nC * chunk:], val[:, nC * chunk:])
+    return acc
 
 
 def gauss_jordan_solve(A: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Batched SPD solve via pivot-free Gauss-Jordan on the augmented system.
-
-    XLA's batched `cholesky`/`solve_triangular` lower to sequential
-    per-column loops that run far below VPU speed for many small (k×k)
-    systems on TPU; this expresses the elimination as k steps of full-batch
-    broadcast FMAs — the whole (S, k, k+1) tensor streams through the VPU
-    each step. Pivot-free is numerically fine here: A = F_Ω^T F_Ω + λI is
-    SPD with its dominant mass on the diagonal. ~k·S·k·(k+1) FLOPs total,
-    same as a direct solve.
+    """Batched SPD solve via pivot-free Gauss-Jordan on the augmented system:
+    k steps of full-batch broadcast FMAs over the (S, k, k+1) tensor.
+    Pivot-free is numerically fine here: A = F_Ω^T F_Ω + λI is SPD with its
+    dominant mass on the diagonal. ~k·S·k·(k+1) FLOPs total, same as a
+    direct solve.
     """
     S, k = b.shape
     M = jnp.concatenate([A, b[..., None]], axis=2)          # (S, k, k+1)
@@ -162,13 +108,9 @@ def gauss_jordan_solve(A: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
 
 def _solve_kxk(A, r, solver: str):
-    if solver == "gj":
-        # VMEM-blocked Pallas kernel: the XLA loop variant streams the whole
-        # augmented tensor through HBM on every elimination step (~173 ms per
-        # ALS side at ml20M k=40); the kernel keeps each block resident
-        from ..ops.gj_pallas import gj_solve_pallas
-        return gj_solve_pallas(A, r,
-                               interpret=jax.default_backend() == "cpu")
+    """Batched (S, k, k) SPD solves: "lax" = Cholesky + two triangular
+    solves (cuSOLVER / cuBLAS batched kernels on the GPU), "gj_xla" =
+    gauss_jordan_solve."""
     if solver == "gj_xla":
         return gauss_jordan_solve(A, r)
     C = jnp.linalg.cholesky(A)
@@ -177,28 +119,22 @@ def _solve_kxk(A, r, solver: str):
         jnp.swapaxes(C, -1, -2), y, lower=False)[..., 0]
 
 
-#: per-group temp budget for the gj assembly+solve: bounds BOTH the
+#: per-group temp budget for the assembly+solve: bounds BOTH the
 #: materialized augmented gather ``Faug`` (rows·L·(k+1)·4 B) and the
-#: batch-last gram ((k+1)²·slots·4 B). One group at ml20M dims (unchanged
-#: behavior); yahoo-r1-scale sides (1.9M slots, 250M padded lanes — Faug
-#: alone would be 119 GB) split into row-contiguous groups, each assembled
-#: and solved independently (slots are row-major, so outputs concat).
+#: augmented gram ((k+1)²·slots·4 B). One group at ml20M dims; yahoo-r1-scale
+#: sides (1.9M slots, 250M padded lanes — Faug alone would be 119 GB) split
+#: into row-contiguous groups, each assembled and solved independently
+#: (slots are row-major, so outputs concat).
 GROUP_TEMP_BYTES = 2 << 30
 
 
 def _row_groups(rows: int, L: int, p: int, k: int,
                 group_bytes: int = GROUP_TEMP_BYTES) -> list[tuple[int, int]]:
-    """Row-contiguous groups whose PADDED temp footprint fits the budget.
-
-    r5 fix: the budget must count TILE-PADDED bytes, not logical ones —
-    XLA lays the fused (k+1, k+1, S) gram temp out with the two k+1 dims
-    minor and pads them to the (8, 128) tile, a 3.7x expansion at k=40
-    (measured: a '2 GB' group allocated a 7.31 GB padded temp and OOM'd
-    HBM at yahoo-r1 dims once the auto bucket floor quadrupled slots per
-    group). The augmented gather temp pads k+1 -> 128 on lanes the same
-    way."""
-    kp1_l = -(-(k + 1) // 128) * 128          # lane-padded k+1
-    kp1_s = -(-(k + 1) // 8) * 8              # sublane-padded k+1
+    """Row-contiguous groups whose temp footprint fits the budget. Bytes are
+    counted with the k+1 dims padded to (8, 128) tiles, a conservative
+    bound (ROADMAP: re-derive for the GPU's layouts)."""
+    kp1_l = -(-(k + 1) // 128) * 128          # k+1 padded to 128
+    kp1_s = -(-(k + 1) // 8) * 8              # k+1 padded to 8
     per_row = max(L * kp1_l * 4, p * kp1_s * kp1_l * 4)
     g = max(1, min(rows, group_bytes // max(1, per_row)))
     return [(r0, min(rows, r0 + g)) for r0 in range(0, rows, g)]
@@ -215,16 +151,13 @@ class _TileShim:
 
 def tile_bucket_np(idx: np.ndarray, val: np.ndarray, n_other_slots: int,
                    tile_rows: int):
-    """Partition one p==1 bucket's lanes by other-side slot TILE (the r5
-    gather-cliff fix, results/als_gather_cliff_r5.json): factor-row
-    gathers run at ~3.6 ns/lane while the gather table is <= ~32 MB and
-    12.6x slower above ~64 MB, so a side whose OTHER side's table exceeds
-    the cliff gathers per <= tile_rows slice instead. Lanes pack left per
-    tile (W_t = max in-tile count over rows); original ELL pad lanes
-    (idx == n_other_slots) fall outside every tile and are DROPPED — the
-    tiled layout carries true nnz only. Returns a list of
-    (lo, hi, idx_local, val) with the local sentinel hi-lo pointing at
-    the zero row appended to the table slice."""
+    """Partition one p==1 bucket's lanes by other-side slot TILE, so a side
+    whose OTHER side's factor table is large gathers per <= tile_rows slice
+    instead of from the whole table. Lanes pack left per tile (W_t = max
+    in-tile count over rows); original ELL pad lanes (idx == n_other_slots)
+    fall outside every tile and are DROPPED — the tiled layout carries true
+    nnz only. Returns a list of (lo, hi, idx_local, val) with the local
+    sentinel hi-lo pointing at the zero row appended to the table slice."""
     tiles = []
     for lo in range(0, n_other_slots, tile_rows):
         hi = min(n_other_slots, lo + tile_rows)
@@ -244,106 +177,79 @@ def tile_bucket_np(idx: np.ndarray, val: np.ndarray, n_other_slots: int,
 
 def _solve_side(idx_tiles, val_tiles, side: EllSide, other_ext, lam,
                 slot_nnz, chunk: int,
-                precision=jax.lax.Precision.HIGHEST, solver: str = "gj",
-                gj_block_r: int | None = None,
+                precision=jax.lax.Precision.HIGHEST, solver: str = "lax",
                 group_bytes: int = GROUP_TEMP_BYTES,
                 tile_bounds: dict | None = None):
     """One ALS half-iteration over a side: x_j = (F_Ω^T F_Ω + λI)^{-1} F_Ω^T r
     for every slot, returning (n_slots, k) new factors.
 
-    ``tile_bounds``: {bucket_index: [(lo, hi), ...]} for buckets whose
-    ``idx_tiles[i]``/``val_tiles[i]`` are PER-TILE tuples from
-    tile_bucket_np — the gram/rhs accumulate over table slices
-    (gather-cliff fix); everything else (groups, lax.map serialization,
-    solve) is identical. Same sums as the classic path up to f32
-    accumulation order."""
+    Each bucket is assembled and solved in memory-bounded row groups
+    (_row_groups). ``tile_bounds``: {bucket_index: [(lo, hi), ...]} for
+    buckets whose ``idx_tiles[i]``/``val_tiles[i]`` are PER-TILE tuples from
+    tile_bucket_np — the gram/rhs accumulate over table slices; everything
+    else is identical. Same sums as the untiled path up to f32 accumulation
+    order."""
     k = other_ext.shape[1]
     eye = jnp.eye(k, dtype=jnp.float32)
     outs = []
     for i, b in enumerate(side.buckets):
         tiled = tile_bounds is not None and i in tile_bounds
-        if solver == "gj":
-            # assembly emits the kernel's batch-last layout directly, gram
-            # and rhs from ONE augmented self-contraction (see _gram_and_rhs),
-            # in memory-bounded row groups
-            from ..ops.gj_pallas import gj_solve_pallas_bl
-            interp = jax.default_backend() == "cpu"
-            if tiled:
-                bounds = tile_bounds[i]
-                rows = idx_tiles[i][0].shape[0]
-                L_eff = sum(ix.shape[1] for ix in idx_tiles[i])
-                groups = _row_groups(rows, max(b.L, L_eff), 1, k,
-                                     group_bytes)
-            else:
-                rows = idx_tiles[i].shape[0]
-                groups = _row_groups(rows, b.L, b.p, k, group_bytes)
-
-            def gram_group(idxg, valg):
-                if not tiled:
-                    return _gram_and_rhs(idxg, valg, other_ext, b, chunk,
-                                         precision, batch_last=True,
-                                         augmented=True)
-                G_t = r_t = None
-                for (lo, hi), ixt, vlt in zip(bounds, idxg, valg):
-                    tabt = jnp.concatenate(
-                        [other_ext[lo:hi], other_ext[-1:]], axis=0)
-                    Gt, rt = _gram_and_rhs(ixt, vlt, tabt,
-                                           _TileShim(ixt.shape[1]), chunk,
-                                           precision, batch_last=True,
-                                           augmented=True)
-                    G_t = Gt if G_t is None else G_t + Gt
-                    r_t = rt if r_t is None else r_t + rt
-                return G_t, r_t
-
-            def solve_group(idxg, valg):
-                G_t, r_t = gram_group(idxg, valg)
-                A_t = G_t + lam * eye[:, :, None]  # λ unscaled, ALS.cpp:121
-                return gj_solve_pallas_bl(A_t, r_t, interpret=interp,
-                                          block_r=gj_block_r).T
-
-            if len(groups) == 1:
-                outs.append(solve_group(idx_tiles[i], val_tiles[i]))
-                continue
-            # many groups (huge sides, e.g. yahoo-r1's 2.5M-slot rows
-            # side): a Python loop of groups under ONE jit lets XLA
-            # schedule every group's ~(k+1)^2 x S_g gram temp concurrently
-            # — measured 27.3 GB requested at yahoo-r1 dims, and an
-            # explicit token-chain optimization_barrier did NOT stop it.
-            # lax.scan over the equal-size group prefix serializes by
-            # construction (one group's temps live at a time); the ragged
-            # last group runs separately.
-            g = groups[0][1]
-            nfull = rows // g
-
-            def _stack(x):      # (rows, W) -> (nfull, g, W) group prefix
-                return x[:nfull * g].reshape(nfull, g, x.shape[1])
-
-            def _tail(x):
-                return x[nfull * g:]
-
-            if tiled:
-                idxg = tuple(_stack(ix) for ix in idx_tiles[i])
-                valg = tuple(_stack(vl) for vl in val_tiles[i])
-                tail_args = (tuple(_tail(ix) for ix in idx_tiles[i]),
-                             tuple(_tail(vl) for vl in val_tiles[i]))
-            else:
-                idxg, valg = _stack(idx_tiles[i]), _stack(val_tiles[i])
-                tail_args = (_tail(idx_tiles[i]), _tail(val_tiles[i]))
-            xs = jax.lax.map(lambda a: solve_group(a[0], a[1]),
-                             (idxg, valg))
-            outs.append(xs.reshape(nfull * g * b.p, k))
-            if rows > nfull * g:
-                outs.append(solve_group(*tail_args))
-            continue
         if tiled:
-            raise NotImplementedError(
-                "gather-cliff tiling is implemented for the gj solver path "
-                "only (als_solver='gj'); set als_gather_tile_mb=0")
-        G, r = _gram_and_rhs(idx_tiles[i], val_tiles[i], other_ext, b, chunk,
-                             precision)
-        A = G + lam * eye                          # λ unscaled, src/ALS.cpp:121
-        x = _solve_kxk(A, r, solver)
-        outs.append(x)
+            bounds = tile_bounds[i]
+            rows = idx_tiles[i][0].shape[0]
+            L_eff = sum(ix.shape[1] for ix in idx_tiles[i])
+            groups = _row_groups(rows, max(b.L, L_eff), 1, k, group_bytes)
+        else:
+            rows = idx_tiles[i].shape[0]
+            groups = _row_groups(rows, b.L, b.p, k, group_bytes)
+
+        def gram_group(idxg, valg, b=b, tiled=tiled):
+            if not tiled:
+                return _gram_and_rhs(idxg, valg, other_ext, b, chunk,
+                                     precision)
+            G = None
+            for (lo, hi), ixt, vlt in zip(bounds, idxg, valg):
+                tabt = jnp.concatenate([other_ext[lo:hi], other_ext[-1:]],
+                                       axis=0)
+                Gt = _gram_and_rhs(ixt, vlt, tabt, _TileShim(ixt.shape[1]),
+                                   chunk, precision)
+                G = Gt if G is None else G + Gt
+            return G
+
+        def solve_group(idxg, valg, gram_group=gram_group):
+            G = gram_group(idxg, valg)
+            A = G[:, :k, :k] + lam * eye           # λ unscaled, ALS.cpp:121
+            return _solve_kxk(A, G[:, :k, k], solver)
+
+        if len(groups) == 1:
+            outs.append(solve_group(idx_tiles[i], val_tiles[i]))
+            continue
+        # many groups (huge sides, e.g. yahoo-r1's 2.5M-slot rows side): a
+        # Python loop of groups under ONE jit lets XLA schedule every
+        # group's gram temp concurrently. lax.map over the equal-size group
+        # prefix serializes by construction (one group's temps live at a
+        # time); the ragged last group runs separately.
+        g = groups[0][1]
+        nfull = rows // g
+
+        def _stack(x):      # (rows, W) -> (nfull, g, W) group prefix
+            return x[:nfull * g].reshape(nfull, g, x.shape[1])
+
+        def _tail(x):
+            return x[nfull * g:]
+
+        if tiled:
+            idxg = tuple(_stack(ix) for ix in idx_tiles[i])
+            valg = tuple(_stack(vl) for vl in val_tiles[i])
+            tail_args = (tuple(_tail(ix) for ix in idx_tiles[i]),
+                         tuple(_tail(vl) for vl in val_tiles[i]))
+        else:
+            idxg, valg = _stack(idx_tiles[i]), _stack(val_tiles[i])
+            tail_args = (_tail(idx_tiles[i]), _tail(val_tiles[i]))
+        xs = jax.lax.map(lambda a, f=solve_group: f(a[0], a[1]), (idxg, valg))
+        outs.append(xs.reshape(nfull * g * b.p, k))
+        if rows > nfull * g:
+            outs.append(solve_group(*tail_args))
     if not side.buckets:
         return jnp.zeros((side.n_slots, k), jnp.float32)
     used = side.bucket_offsets[-1] + side.buckets[-1].slots_per_shard
@@ -358,8 +264,7 @@ def _solve_side(idx_tiles, val_tiles, side: EllSide, other_ext, lam,
 def make_als_outer_step(ell: EllPair, lam: float, chunk: int,
                         jit_compile: bool = True,
                         precision_name: str = "highest",
-                        solver: str = "gj",
-                        gj_block_r: int | None = None,
+                        solver: str = "lax",
                         group_bytes: int = GROUP_TEMP_BYTES,
                         tile_bounds_r: dict | None = None,
                         tile_bounds_c: dict | None = None):
@@ -371,11 +276,9 @@ def make_als_outer_step(ell: EllPair, lam: float, chunk: int,
 
     def step(idx_r, idx_c, vals_r, vals_c, W, H, nnz_r, nnz_c):
         W = _solve_side(idx_r, vals_r, rows, extend_zero(H), lam_, nnz_r,
-                        chunk, prec, solver, gj_block_r, group_bytes,
-                        tile_bounds_r)
+                        chunk, prec, solver, group_bytes, tile_bounds_r)
         H = _solve_side(idx_c, vals_c, cols, extend_zero(W), lam_, nnz_c,
-                        chunk, prec, solver, gj_block_r, group_bytes,
-                        tile_bounds_c)
+                        chunk, prec, solver, group_bytes, tile_bounds_c)
         return W, H
 
     if not jit_compile:
@@ -385,7 +288,7 @@ def make_als_outer_step(ell: EllPair, lam: float, chunk: int,
 
 def build_side_gather_tiles(side: EllSide, other_n_slots: int, k: int,
                             tile_mb: int):
-    """Gather-cliff tiling decision + construction for one side (the side
+    """Gather tiling decision + construction for one side (the side
     SOLVED FOR gathers the OTHER side's table). Returns
     (tile_bounds or None, per-bucket arg transform): buckets with p == 1
     whose other-side table exceeds ``tile_mb`` get per-tile index/value
@@ -422,9 +325,8 @@ def als_ell_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
     rows, cols = ell.rows_side, ell.cols_side
     k = W0.shape[1]
 
-    # gather-cliff tiling (results/als_gather_cliff_r5.json): a side
-    # whose OTHER side's factor table exceeds ~the on-chip staging cliff
-    # gathers 12.6x slower; partition those buckets' lanes by table tile
+    # gather tiling: a side whose OTHER side's factor table exceeds
+    # cfg.als_gather_tile_mb gathers per table tile
     tb_r, ta_r = build_side_gather_tiles(rows, cols.n_slots, k,
                                          cfg.als_gather_tile_mb)
     tb_c, ta_c = build_side_gather_tiles(cols, rows.n_slots, k,

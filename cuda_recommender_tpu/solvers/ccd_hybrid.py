@@ -1,29 +1,22 @@
 """CCD++ — compiled panel-hybrid backend (the large-matrix flagship).
 
-The TPU-native answer for matrices whose full dense residual exceeds HBM
-(Netflix-100M: 480k x 17.7k bf16 residual+mask ≈ 34 GB). The pure padded-ELL
-path is bound by the measured ~0.3 G rows/s gather-issue rate — per rank it
-must move every rating's factor value through a gather, capping it at
-~80 M rating-updates/s at these dims regardless of MXU width. The fix is to
-stop gathering for the cells that carry the mass:
+For matrices whose full dense residual is too large to keep, or wasteful to
+stream (Netflix-100M: 480k x 17.7k cells, 1.2% observed). The pure
+padded-ELL path must move every rating's factor value through a gather per
+rank. The hybrid stops gathering for the cells that carry the mass:
 
   * sort users AND items by degree. Real rating matrices are doubly
     power-law, so the nnz mass concentrates in the top-left corner of the
     sorted matrix;
   * cover that corner with a small stair of **dense panels** — panel 1 =
     top users x ALL items, panel 2 = next users x top-w2 items, ... — each a
-    dense residual block + bf16 mask driven by the dense backend's
-    deferred-subtract matvec schedule (solvers/ccd_dense.py), HBM/MXU-bound;
-  * the sparse remainder (typically 10-20% of nnz under a panel budget that
-    fits HBM) keeps the degree-bucketed lane-packed ELL layout (data/ell.py)
-    with the 2-wide PAIRED row gathers of the pure ELL solver's schedule —
-    1-wide gathers from a flat table run in scalar mode (~7.7 ns/element,
-    measured 17.5 s/iter at Netflix dims) while (S, 2) pair gathers ride the
-    ~3.3 ns/ROW mode. The pair-gather output (rows, L, 2) would pad its
-    minor dim 2 -> 128 lanes (a measured ~31x HLO-temp expansion, 7.6 GB at
-    Netflix dims — more than a panel's worth of residual), so
-    ops/ell_ops.paired_gather chunks the rows under lax.map to keep exactly
-    one chunk's padded buffer live.
+    dense residual block + mask driven by the dense backend's
+    deferred-subtract schedule (solvers/ccd_dense.py), bandwidth-bound;
+  * the sparse remainder (typically 10-20% of nnz under the panel budget)
+    keeps the degree-bucketed ELL layout (data/ell.py) with the 2-wide
+    PAIRED row gathers of the pure ELL solver's schedule;
+    ops/ell_ops.paired_gather chunks the rows under lax.map to bound the
+    gathered temp.
 
 Factors live in degree-sorted entity order — W (k, m), H (k, n) — so every
 panel touches a contiguous static slice and the ELL bucket ``idx`` arrays
@@ -39,8 +32,7 @@ backends, just with the Omega_j reduction partitioned.
 
 The reference role being replaced is the CUDA CCD++ kernel set
 (/root/reference/cuda_src/CCD_CUDA.cu:24-104); the reference has no
-counterpart for the decomposition — it is a TPU-roofline-driven design (the
-gather wall does not exist for a pointer-chasing GPU SM).
+counterpart for the decomposition.
 
 Semantics preserved (SURVEY.md §7): H zeroed at entry (src/CCD.cpp:56-60);
 lambda*nnz regularization with total degrees; v-sweep before u-sweep per
@@ -50,8 +42,7 @@ Schedules: EVERY part — dense panels, cols-ELL and rows-ELL — defers the
 subtract of a rank's new outer product to the next rank via the shared
 (u_pend, v_pend) state, so each ELL side needs exactly ONE fused
 gather+update+sweep pass per rank (ops/ell_ops.fused_update_sweep; feeding
-a chunked gather tile to >1 consumer op re-runs the gather per consumer,
-measured ~28 ms/rank — results/residual_update_micro_r3.json).
+a chunked gather tile to >1 consumer op re-runs the gather per consumer).
 """
 
 from __future__ import annotations
@@ -113,8 +104,8 @@ def _candidate_boundaries(m: int, align: int = 8, npts: int = 129,
                      .astype(np.int64) * align)
     cand = np.minimum(cand, (m // align) * align)
     if include_full:
-        # the exact row count as a candidate (kernel blocks clamp+pad, so
-        # alignment is only a sharding constraint): a budget >= m*n then
+        # the exact row count as a candidate (alignment is only a sharding
+        # constraint): a budget >= m*n then
         # yields ONE full panel and no ELL tail at all — the dense case as
         # a degenerate hybrid plan.
         cand = np.unique(np.append(cand, m))
@@ -194,8 +185,8 @@ def _auto_stair(rp: np.ndarray, cp: np.ndarray, m: int, n: int,
                 budget: int, align: int, *, min_width: int = 128,
                 max_panels: int = 8) -> list[tuple[int, int, int]]:
     """Data-driven panel stair: choose panel WIDTHS and BOUNDARIES jointly
-    from the degree distribution under the cell budget (the round-2 planner
-    fixed the widths from config and searched boundaries only — VERDICT #3).
+    from the degree distribution under the cell budget (the tuple form fixes
+    the widths from config and searches boundaries only).
 
     Formulation: with users and items degree-sorted, assign every block of
     ``align``-aligned user rows a width w(b) from a geometric candidate
@@ -310,9 +301,9 @@ def _auto_stair(rp: np.ndarray, cp: np.ndarray, m: int, n: int,
 def resolve_hybrid_transpose(R: RatingMatrix, cfg: Config) -> bool:
     """Resolve cfg.hybrid_transpose to a concrete orientation. "auto"
     geometry-plans BOTH orientations (no dense materialization, no device
-    work) and picks the smaller uncovered tail — the tail's padded-lane
-    gather wall (results/tail_floor_r4.json) dominates the marginal panel
-    cost, so min nnz_light is the right objective at equal budget."""
+    work) and picks the smaller uncovered tail — a tail lane costs a gather
+    where a panel cell costs a streamed byte, so min nnz_light is the
+    objective at equal budget."""
     if not cfg.hybrid_transpose:
         return False
     if cfg.hybrid_transpose is True:
@@ -454,26 +445,18 @@ def _finish_plan(R, cfg, materialize_dense, num_shards, panels,
 
 
 def densify_panels(plan: HybridPlan, residual_dtype, *, sharding=None,
-                   mask_dtype=jnp.bfloat16, block_pad: bool = False,
-                   num_shards: int = 1):
+                   mask_dtype=jnp.bfloat16):
     """Device-side scatter of each panel's COO into its (rows, w) residual
     block + mask — ONE jitted scatter per panel (a fused all-panel
-    scatter holds every output AND its zeros-init live at once; measured OOM
-    at the 2e9-cell budget). This is how the production train paths build
+    scatter holds every output AND its zeros-init live at once). This is how the production train paths build
     panels: a host-materialized Netflix panel set is ~16 GB of RAM plus a
     multi-GB host->device ship, while the COO is ~nnz-sized.
 
-    ``mask_dtype`` int8 halves the mask's HBM footprint/read traffic with
+    ``mask_dtype`` int8 halves the mask's footprint/read traffic with
     identical numerics ({0,1} exact; the sweeps convert at the operand
     load, cfg.mask_dtype). ``mask_dtype="nan"`` stores no mask at all —
     unobserved cells hold a NaN sentinel in the residual and ``masks`` is
-    returned as an EMPTY tuple (the step derives the mask in-register).
-    ``block_pad`` (NaN mode only) allocates each panel at the Pallas
-    block-aligned shape (ops/panel_pallas.padded_panel_shape) — pad cells
-    are NaN, i.e. unobserved, so the math is unchanged. With
-    ``num_shards`` > 1 each device's LOCAL row block is padded
-    independently (global layout = concat of N aligned local blocks), and
-    the scatter's row indices are remapped into that layout."""
+    returned as an EMPTY tuple (the step derives the mask in-register)."""
     rdt = jnp.dtype(residual_dtype)
 
     @functools.partial(jax.jit, static_argnums=(3, 4))
@@ -482,21 +465,10 @@ def densify_panels(plan: HybridPlan, residual_dtype, *, sharding=None,
         # OOMs a fresh compile at Netflix-panel nnz (ops/densify.py)
         return densify_coo(lr, lc, lv, rows_, w_, rdt, mask_dtype)
 
-    if block_pad and mask_dtype != "nan":
-        raise ValueError("block_pad requires mask_dtype='nan'")
-
     Rds, masks = [], []
     for (lr, lc, lv), (r0, r1, w) in zip(plan.panel_coo or (), plan.panels):
-        rows_, w_ = r1 - r0, w
-        if block_pad:
-            from ..ops.panel_pallas import padded_panel_shape
-            rows_, w_ = padded_panel_shape(rows_, w_, shards=num_shards)
-            if num_shards > 1:
-                lr_ent = (r1 - r0) // num_shards
-                lrp = rows_ // num_shards
-                lr = (lr // lr_ent) * lrp + lr % lr_ent
         Rd, Md = _one(jnp.asarray(lr), jnp.asarray(lc), jnp.asarray(lv),
-                      rows_, w_)
+                      r1 - r0, w)
         jax.block_until_ready(Rd)          # finish before the next scatter
         if sharding is not None:
             Rd = jax.device_put(Rd, sharding)
@@ -506,6 +478,35 @@ def densify_panels(plan: HybridPlan, residual_dtype, *, sharding=None,
         if Md is not None:
             masks.append(Md)
     return tuple(Rds), tuple(masks)
+
+
+def panel_operands(Rd, mask):
+    """f32 (residual, mask) operands for the panel sweeps; ``mask`` None =
+    NaN-sentinel panel (mask = ~isnan in-register)."""
+    f32 = jnp.float32
+    if mask is None:
+        isn = jnp.isnan(Rd)
+        return jnp.where(isn, f32(0), Rd.astype(f32)), (~isn).astype(f32)
+    return Rd.astype(f32), mask.astype(f32)
+
+
+def panel_col_sums(u, Rd, mask):
+    """v-sweep partials over one panel: g[j] = Σ_i u_i·R_ij, h[j] = Σ_i
+    u_i²·M_ij. Written as products + reductions, which XLA fuses with the
+    operand conversion into one pass over the stored residual; a
+    matrix-vector dot may instead be handed to a library call that needs
+    the f32 operands materialized (a panel-sized temp each)."""
+    Rf, Mf = panel_operands(Rd, mask)
+    uc = u.astype(jnp.float32)[:, None]
+    return (uc * Rf).sum(axis=0), (uc * uc * Mf).sum(axis=0)
+
+
+def panel_row_sums(Rd, mask, v):
+    """u-sweep partials over one panel: g[i] = Σ_j R_ij·v_j, h[i] = Σ_j
+    M_ij·v_j² (same fused form as panel_col_sums)."""
+    Rf, Mf = panel_operands(Rd, mask)
+    vr = v.astype(jnp.float32)[None, :]
+    return (Rf * vr).sum(axis=1), (Mf * (vr * vr)).sum(axis=1)
 
 
 def make_hybrid_outer_step(plan: HybridPlan, lam: float, maxinneriter: int,
@@ -525,13 +526,11 @@ def make_hybrid_outer_step(plan: HybridPlan, lam: float, maxinneriter: int,
     unobserved cells are NaN in the residual; the update leaves them NaN
     (NaN + delta = NaN) and the sweeps derive mask = ~isnan in-register.
 
-    ``panel_kernel`` (implies nan_mask; panels must be block-padded,
-    densify_panels(block_pad=True)): panel passes run through the fused
+    ``panel_kernel`` (implies nan_mask): panel passes run through the fused
     Pallas kernels (ops/panel_pallas.py) — update + v-sweep partials in one
-    read-modify-write pass and u-sweep partials in one read pass, halving
-    panel HBM traffic vs the XLA einsum schedule. Accumulation is blocked
-    f32, so factors may differ from the XLA path at FMA/sum-order ULP
-    level (golden tolerance unaffected).
+    read-modify-write pass and u-sweep partials in one read pass.
+    Accumulation is blocked f32, so factors may differ from the XLA path at
+    FMA/sum-order ULP level (golden tolerance unaffected).
 
     ``defer_group`` G > 0: the round-4 rank-deferred ELL tail. The residual
     lanes stay FROZEN for G consecutive ranks; every rank's two rank-1
@@ -540,14 +539,9 @@ def make_hybrid_outer_step(plan: HybridPlan, lam: float, maxinneriter: int,
     side tables, the sweeps run as WIDE single-fusion gather-reduces
     against the frozen lanes plus algebraic cross-term corrections
     (ops/ell_ops.deferred_sweep), and the lanes are updated once per group
-    in one 2G-wide flush pass (ops/ell_ops.deferred_flush). Motivation
-    (measured, results/wide_sweep_micro_r4.json + tail_hlo dumps): the one
-    fast gather shape on TPU is gather -> sibling lane-reductions (~flat
-    in table width to ~33 columns), while any gather tile consumed by an
-    elementwise-output fusion materializes with its minor dim padded
-    T -> 128 lanes; deferring turns 2 padded per-rank update passes into
-    corrections riding the sweep fusion + 1/G amortized flushes.
-    Numerically this changes only FMA/accumulation order (golden-tolerance
+    in one 2G-wide flush pass (ops/ell_ops.deferred_flush): 2 per-rank
+    update passes become corrections riding the sweep fusion plus 1/G
+    amortized flushes. Numerically this changes only FMA/accumulation order (golden-tolerance
     equivalence tested); requires have_light and is ignored otherwise."""
     if panel_kernel and not nan_mask:
         raise ValueError("panel_kernel requires nan_mask")
@@ -556,17 +550,9 @@ def make_hybrid_outer_step(plan: HybridPlan, lam: float, maxinneriter: int,
     lam_ = jnp.float32(lam)
     have_light = plan.nnz_light > 0
     rdt = residual_dtype
-    cdt = jnp.float32
     m = plan.row_nnz.shape[0]
     n = plan.col_nnz.shape[0]
     f32 = jnp.float32
-    interp = jax.default_backend() == "cpu"
-
-    def _seg(x, r0, r1, Mp):             # (m,) -> padded panel-row segment
-        return jnp.pad(x[r0:r1], (0, Mp - (r1 - r0)))
-
-    def _vec(x, w, Wp):                  # (n,) -> padded panel-col vector
-        return jnp.pad(x[:w], (0, Wp - w))
 
     G = int(defer_group) if have_light else 0
     dsigns = tuple((-1.0 if c % 2 == 0 else 1.0) for c in range(2 * G))
@@ -576,14 +562,6 @@ def make_hybrid_outer_step(plan: HybridPlan, lam: float, maxinneriter: int,
              upos_safe, ipos_safe, slot_of_upos, slot_of_ipos):
         if nan_mask:
             masks = (None,) * len(panels)
-
-        def panel_view(Rd, mask):
-            """f32 (residual, mask) operands for the sweep einsums."""
-            if mask is None:
-                isn = jnp.isnan(Rd)
-                return (jnp.where(isn, jnp.float32(0), Rd.astype(cdt)),
-                        (~isn).astype(cdt))
-            return Rd.astype(cdt), mask.astype(cdt)
 
         def rank_body(t, carry):
             if G:
@@ -635,29 +613,19 @@ def make_hybrid_outer_step(plan: HybridPlan, lam: float, maxinneriter: int,
                                                     panel_vsweep)
                     new_Rds = list(Rds)
                     for pi, (r0, r1, w) in enumerate(panels):
-                        Rd = new_Rds[pi]
-                        Mp, Wp = Rd.shape
                         if i == 0:
-                            Rd, gp, hp = panel_update_vsweep(
-                                Rd, _seg(u_old, r0, r1, Mp),
-                                _seg(u_pend, r0, r1, Mp),
-                                _vec(v_old, w, Wp), _vec(v_pend, w, Wp),
-                                interpret=interp)
-                            new_Rds[pi] = Rd
+                            new_Rds[pi], gp, hp = panel_update_vsweep(
+                                new_Rds[pi], u_old[r0:r1], u_pend[r0:r1],
+                                v_old[:w], v_pend[:w])
                         else:
-                            gp, hp = panel_vsweep(
-                                Rd, _seg(u, r0, r1, Mp), interpret=interp)
-                        g = g.at[:w].add(gp[:w])
-                        h = h.at[:w].add(hp[:w])
+                            gp, hp = panel_vsweep(new_Rds[pi], u[r0:r1],
+                                                  )
+                        g = g.at[:w].add(gp)
+                        h = h.at[:w].add(hp)
                     Rds = tuple(new_Rds)
                 else:
                     for (r0, r1, w), Rd, mask in zip(panels, Rds, masks):
-                        Rf, Mf = panel_view(Rd, mask)
-                        gp = jnp.einsum("m,mn->n", u[r0:r1].astype(cdt),
-                                        Rf, preferred_element_type=f32)
-                        hp = jnp.einsum("m,mn->n",
-                                        (u[r0:r1] * u[r0:r1]).astype(cdt),
-                                        Mf, preferred_element_type=f32)
+                        gp, hp = panel_col_sums(u[r0:r1], Rd, mask)
                         g = g.at[:w].add(gp)
                         h = h.at[:w].add(hp)
                 if have_light:
@@ -678,8 +646,7 @@ def make_hybrid_outer_step(plan: HybridPlan, lam: float, maxinneriter: int,
                         # the deferred subtract of rank t-1, the add-back
                         # AND the sweep partials all live in one lax.map
                         # chunk body — a tile fed to >1 consumer op re-runs
-                        # the whole chunked gather per consumer (measured
-                        # ~28 ms/rank, results/residual_update_micro_r3.json)
+                        # the whole chunked gather per consumer
                         ovp, ovo = stacked_remap((v_pend, v_old), ipos_safe)
                         vals_c, g_l, h_l = fused_update_sweep(
                             idx_c, vals_c, cols,
@@ -707,18 +674,12 @@ def make_hybrid_outer_step(plan: HybridPlan, lam: float, maxinneriter: int,
                 if panel_kernel:
                     from ..ops.panel_pallas import panel_usweep
                     for (r0, r1, w), Rd in zip(panels, Rds):
-                        gp, hp = panel_usweep(Rd, _vec(v, w, Rd.shape[1]),
-                                              interpret=interp)
-                        gu = gu.at[r0:r1].add(gp[:r1 - r0])
-                        hu = hu.at[r0:r1].add(hp[:r1 - r0])
+                        gp, hp = panel_usweep(Rd, v[:w])
+                        gu = gu.at[r0:r1].add(gp)
+                        hu = hu.at[r0:r1].add(hp)
                 else:
                     for (r0, r1, w), Rd, mask in zip(panels, Rds, masks):
-                        Rf, Mf = panel_view(Rd, mask)
-                        gp = jnp.einsum("mn,n->m", Rf, v[:w].astype(cdt),
-                                        preferred_element_type=f32)
-                        hp = jnp.einsum("mn,n->m", Mf,
-                                        (v[:w] * v[:w]).astype(cdt),
-                                        preferred_element_type=f32)
+                        gp, hp = panel_row_sums(Rd, mask, v[:w])
                         gu = gu.at[r0:r1].add(gp)
                         hu = hu.at[r0:r1].add(hp)
                 if have_light:
@@ -810,15 +771,15 @@ def make_hybrid_phase_fns(plan: HybridPlan, lam: float, maxinneriter: int,
                           nan_mask: bool = False,
                           panel_kernel: bool = False, nmf: bool = False):
     """Phase-split step functions for the phase-timing mode (phase_loop.py)
-    on the HYBRID backend — VERDICT r2 missing #1: the flagship could not
-    produce the reference's rank/update split (GpuTimer-per-phase,
+    on the HYBRID backend, so the flagship produces the reference's
+    rank/update split (GpuTimer-per-phase,
     /root/reference/cuda_src/CCD_CUDA.cu:336-381, printed at
     src/CCD.cpp:158). Plain reference schedule (add-back / sweeps /
     immediate subtract, src/CCD.cpp:74-139), each phase one fence-able
     dispatch covering ALL parts (panels + both ELL tail sides). Sweeps use
     the fused Pallas panel kernels when ``panel_kernel`` (the production
     read passes); the update phases use the XLA outer-product schedule — an
-    update-only Pallas pass would measure the same one RMW HBM pass.
+    update-only kernel would make the same one read-modify-write pass.
 
     State: (Rds, vals_r, vals_c, W, H); no pend state (the deferred
     subtract is a fusion trick — separable phases need the plain order)."""
@@ -829,21 +790,13 @@ def make_hybrid_phase_fns(plan: HybridPlan, lam: float, maxinneriter: int,
     f32 = jnp.float32
     m = plan.row_nnz.shape[0]
     n = plan.col_nnz.shape[0]
-    interp = jax.default_backend() == "cpu"
-
-    def _seg(x, r0, r1, Mp):
-        return jnp.pad(x[r0:r1], (0, Mp - (r1 - r0)))
-
-    def _vec(x, w, Wp):
-        return jnp.pad(x[:w], (0, Wp - w))
 
     def _panel_update(Rds, masks, u, v, sign):
         if nan_mask:
             masks = (None,) * len(panels)
         new = []
         for (r0, r1, w), Rd, mask in zip(panels, Rds, masks):
-            Mp, Wp = Rd.shape
-            delta = sign * jnp.outer(_seg(u, r0, r1, Mp), _vec(v, w, Wp))
+            delta = sign * jnp.outer(u[r0:r1], v[:w])
             if mask is None:               # NaN sentinel absorbs the delta
                 new.append(Rd + delta.astype(Rd.dtype))
             else:
@@ -899,34 +852,20 @@ def make_hybrid_phase_fns(plan: HybridPlan, lam: float, maxinneriter: int,
         u = jax.lax.dynamic_slice_in_dim(W, t, 1, 0)[0]
         v = jax.lax.dynamic_slice_in_dim(H, t, 1, 0)[0]
 
-        def panel_view(Rd, mask):
-            if mask is None:
-                isn = jnp.isnan(Rd)
-                return (jnp.where(isn, jnp.float32(0), Rd.astype(f32)),
-                        (~isn).astype(f32))
-            return Rd.astype(f32), mask.astype(f32)
-
         for _ in range(maxinneriter):      # src/CCD.cpp:107-123
             g = jnp.zeros(n, f32)
             h = jnp.zeros(n, f32)
             if panel_kernel:
                 from ..ops.panel_pallas import panel_vsweep
                 for (r0, r1, w), Rd in zip(panels, Rds):
-                    gp, hp = panel_vsweep(Rd, _seg(u, r0, r1, Rd.shape[0]),
-                                          interpret=interp)
-                    g = g.at[:w].add(gp[:w])
-                    h = h.at[:w].add(hp[:w])
+                    gp, hp = panel_vsweep(Rd, u[r0:r1])
+                    g = g.at[:w].add(gp)
+                    h = h.at[:w].add(hp)
             else:
                 for (r0, r1, w), Rd, mask in zip(panels, Rds, masks_):
-                    Rf, Mf = panel_view(Rd, mask)
-                    Mp, Wp = Rd.shape
-                    us = _seg(u, r0, r1, Mp)
-                    gp = jnp.einsum("m,mn->n", us, Rf,
-                                    preferred_element_type=f32)
-                    hp = jnp.einsum("m,mn->n", us * us, Mf,
-                                    preferred_element_type=f32)
-                    g = g.at[:w].add(gp[:w])
-                    h = h.at[:w].add(hp[:w])
+                    gp, hp = panel_col_sums(u[r0:r1], Rd, mask)
+                    g = g.at[:w].add(gp)
+                    h = h.at[:w].add(hp)
             if have_light:
                 pc = paired_gather(extend_zero(jnp.stack([u, u], -1)), idx_c)
                 g_l, h_l, _ = sweep_partials(idx_c, vals_c, cols, None,
@@ -943,21 +882,14 @@ def make_hybrid_phase_fns(plan: HybridPlan, lam: float, maxinneriter: int,
             if panel_kernel:
                 from ..ops.panel_pallas import panel_usweep
                 for (r0, r1, w), Rd in zip(panels, Rds):
-                    gp, hp = panel_usweep(Rd, _vec(v, w, Rd.shape[1]),
-                                          interpret=interp)
-                    gu = gu.at[r0:r1].add(gp[:r1 - r0])
-                    hu = hu.at[r0:r1].add(hp[:r1 - r0])
+                    gp, hp = panel_usweep(Rd, v[:w])
+                    gu = gu.at[r0:r1].add(gp)
+                    hu = hu.at[r0:r1].add(hp)
             else:
                 for (r0, r1, w), Rd, mask in zip(panels, Rds, masks_):
-                    Rf, Mf = panel_view(Rd, mask)
-                    Mp, Wp = Rd.shape
-                    vs = _vec(v, w, Wp)
-                    gp = jnp.einsum("mn,n->m", Rf, vs,
-                                    preferred_element_type=f32)
-                    hp = jnp.einsum("mn,n->m", Mf, vs * vs,
-                                    preferred_element_type=f32)
-                    gu = gu.at[r0:r1].add(gp[:r1 - r0])
-                    hu = hu.at[r0:r1].add(hp[:r1 - r0])
+                    gp, hp = panel_row_sums(Rd, mask, v[:w])
+                    gu = gu.at[r0:r1].add(gp)
+                    hu = hu.at[r0:r1].add(hp)
             if have_light:
                 pr = paired_gather(extend_zero(jnp.stack([v, v], -1)), idx_r)
                 g_lr, h_lr, _ = sweep_partials(idx_r, vals_r, rows, None,
@@ -989,7 +921,7 @@ def ccd_hybrid_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
     sets, the factors (sorted order) and the pending outer product — all of
     it training state (src/CCD.cpp:100-134).
 
-    ``cfg.hybrid_transpose`` (VERDICT r4 next #4): True runs the SAME
+    ``cfg.hybrid_transpose``: True runs the SAME
     solver on R^T — the stair covers top-items x user prefixes, the item
     side carries the seeded factors and users are swept first; factors
     swap back on return, so the caller contract is unchanged. "auto"
@@ -1025,21 +957,12 @@ def ccd_hybrid_train(R: RatingMatrix, W0: np.ndarray, H0: np.ndarray,
     kernel = cfg.hybrid_panel_kernel
     if plan.panel_coo is not None:
         dense_Rds, masks = densify_panels(plan, rdt,
-                                          mask_dtype=cfg.mask_dtype,
-                                          block_pad=kernel)
+                                          mask_dtype=cfg.mask_dtype)
     elif nan_mask:                         # materialized plan, NaN sentinel
-        dense_Rds = []
-        for Rp, Mp in zip(plan.Rd, plan.Md):
-            Rn = jnp.where(jnp.asarray(Mp) > 0, jnp.asarray(Rp),
-                           jnp.nan).astype(rdt)
-            if kernel:
-                from ..ops.panel_pallas import padded_panel_shape
-                Mp_, Wp_ = padded_panel_shape(*Rn.shape)
-                Rn = jnp.pad(Rn, ((0, Mp_ - Rn.shape[0]),
-                                  (0, Wp_ - Rn.shape[1])),
-                             constant_values=jnp.nan)
-            dense_Rds.append(Rn)
-        dense_Rds = tuple(dense_Rds)
+        dense_Rds = tuple(
+            jnp.where(jnp.asarray(Mp) > 0, jnp.asarray(Rp),
+                      jnp.nan).astype(rdt)
+            for Rp, Mp in zip(plan.Rd, plan.Md))
         masks = ()
     else:                                  # caller passed a materialized plan
         mdt = jnp.dtype(cfg.mask_dtype)

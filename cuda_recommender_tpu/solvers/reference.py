@@ -1,7 +1,7 @@
 """Golden-semantics solvers (NumPy, interpret mode).
 
 These play the role of the reference's OpenMP backends — the slow,
-obviously-correct implementations every compiled TPU backend is cross-validated
+obviously-correct implementations every compiled backend is cross-validated
 against (the reference's own discipline: dual backends from identical init +
 golden_compare, /root/reference/src/main.cpp:109-144).
 

@@ -23,9 +23,9 @@ import sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax  # noqa: E402
+os.environ["JAX_PLATFORMS"] = "cpu"
 
-jax.config.update("jax_platforms", "cpu")
+import jax  # noqa: E402
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -1,4 +1,4 @@
-"""Compiled-backend golden validation: every TPU backend must reproduce the
+"""Compiled-backend golden validation: every compiled backend must reproduce the
 NumPy golden solver from identical init within the reference's 10% per-entry
 tolerance (the reference's own dual-backend discipline,
 /root/reference/src/main.cpp:109-144) — and in practice to ~1e-5."""
@@ -144,7 +144,7 @@ def test_ccd_dense_bf16_residual(small_data, ccd_golden):
 
 
 def test_als_default_precision_close(small_data, als_golden):
-    """als_precision='default' (bf16 MXU grams) stays within a few permil of
+    """als_precision='default' (reduced-precision grams) stays within a few permil of
     the golden trajectory — the production-speed option."""
     R, T = small_data
     W0, H0, Wr, Hr, stats_r = als_golden
@@ -196,6 +196,49 @@ def test_gauss_jordan_solve_matches_numpy(rng):
     np.testing.assert_allclose(x, want, rtol=2e-3, atol=2e-4)
 
 
+@pytest.mark.parametrize("solver", ["lax", "gj_xla"])
+@pytest.mark.parametrize("k", [1, 4, 10, 40, 128])
+def test_als_solve_matches_numpy(rng, solver, k):
+    """The batched XLA k×k solve on SPD grams F^T F + λI against float64
+    np.linalg.solve, normwise per system (f32 arithmetic; the grams are
+    well conditioned, so 1e-4 leaves a wide margin)."""
+    import jax.numpy as jnp
+
+    from cuda_recommender_tpu.solvers.als_ell import _solve_kxk
+
+    S = 32
+    F = rng.normal(size=(S, 2 * k, k)).astype(np.float32)
+    A = np.einsum("sek,sel->skl", F, F) + 0.1 * np.eye(k, dtype=np.float32)
+    b = rng.normal(size=(S, k)).astype(np.float32)
+    x = np.asarray(_solve_kxk(jnp.asarray(A), jnp.asarray(b), solver))
+    want = np.linalg.solve(A.astype(np.float64),
+                           b.astype(np.float64)[..., None])[..., 0]
+    err = np.linalg.norm(x - want, axis=1) / np.linalg.norm(want, axis=1)
+    assert err.max() <= 1e-4
+
+
+@pytest.mark.parametrize("k", [1, 4, 10, 40, 128])
+def test_als_zero_lambda_empty_slots_exact_zero(k):
+    """λ=0 makes an empty entity's gram singular (all zeros); its factor
+    must come out as exact 0 — never NaN — at every rank, and the
+    non-empty factors (degree > k, so their grams are nonsingular) stay
+    finite."""
+    from cuda_recommender_tpu.data.sparse import from_coo, make_test
+
+    rng = np.random.default_rng(k)
+    m, n = 2 * k + 20, 2 * k + 10
+    r, c = np.nonzero(rng.random((m, n)) < 0.9)
+    keep = ~np.isin(r, [3, 17]) & ~np.isin(c, [5, n - 1])  # empty entities
+    R = from_coo(m, n, r[keep], c[keep],
+                 rng.normal(3, 1, keep.sum()).astype(np.float32))
+    T = make_test(m, n, [0], [0], [3.0])
+    W0, H0 = init_factors_np(k, m, n, seed=0, entity_major=True)
+    cfg = Config(solver="als", k=k, maxiter=1, lambda_=0.0)
+    W, H, _ = als_ell_train(R, W0, H0, T, cfg)
+    assert np.all(W[[3, 17]] == 0) and np.all(H[[5, n - 1]] == 0)
+    assert np.isfinite(W).all() and np.isfinite(H).all()
+
+
 def test_als_wide_bucket_not_chunk_divisible():
     """Data-driven ladder widths need not divide the gram scan chunk
     (ell_chunk=512): a ~700-wide bucket must stream 512 + a 188-column
@@ -226,16 +269,20 @@ def test_als_wide_bucket_not_chunk_divisible():
     assert golden_compare(H, Hr, atol=1e-3).passed
 
 
-def test_als_gather_tiled_matches_classic():
-    """Gather-cliff tiling (results/als_gather_cliff_r5.json): forcing a
-    tiny tile threshold partitions every p==1 bucket's lanes by other-side
-    table tile; the tiled grams must reproduce the classic path (same sums
-    up to f32 accumulation order) and match the golden reference. Needs
-    high-degree rows so the rows side has wide (p==1) buckets."""
+@pytest.mark.parametrize("tile_mb,group_mb", [(0.002, 2048), (0, 1),
+                                              (0.002, 1)])
+def test_als_gather_tiled_matches_classic(tile_mb, group_mb):
+    """Gather tiling and row groups: forcing a tiny tile threshold
+    partitions every p==1 bucket's lanes by other-side table tile, and a
+    tiny group budget splits each bucket into many lax.map row groups;
+    either way (and both at once) the factors must reproduce the untiled
+    single-group path (same sums up to f32 accumulation order) and match
+    the golden reference. Needs high-degree rows so the rows side has wide
+    (p==1) buckets."""
     from cuda_recommender_tpu.data.datasets import synthetic
     from cuda_recommender_tpu.data.ell import build_ell_pair
     from cuda_recommender_tpu.solvers.als_ell import (
-        als_ell_train, build_side_gather_tiles)
+        _row_groups, als_ell_train, build_side_gather_tiles)
     from cuda_recommender_tpu.solvers.reference import als_reference
 
     R, T = synthetic(m=200, n=300, nnz=30_000, seed=4, test_fraction=0.05)
@@ -244,12 +291,17 @@ def test_als_gather_tiled_matches_classic():
     base = dict(solver="als", k=k, lambda_=0.1, maxiter=3)
     Wc, Hc, sc = als_ell_train(R, W0.copy(), H0.copy(), T,
                                Config(als_gather_tile_mb=0, **base))
-    # ~2 KB tiles -> many tiles over the 300-slot cols table
-    cfg_t = Config(als_gather_tile_mb=0.002, **base)
+    # ~2 KB tiles -> many tiles over the 300-slot cols table; 1 MB groups
+    # -> several row groups per wide bucket
+    cfg_t = Config(als_gather_tile_mb=tile_mb, als_group_mb=group_mb, **base)
     ell = build_ell_pair(R, min_width=cfg_t.als_min_width, num_shards=1)
     tb, _ = build_side_gather_tiles(ell.rows_side, ell.cols_side.n_slots,
                                     k, cfg_t.als_gather_tile_mb)
-    assert tb, "tiny threshold must trigger tiling on the rows side"
+    assert bool(tb) == (tile_mb > 0), "tiling must trigger iff requested"
+    groups = max(len(_row_groups(b.idx.shape[0], b.L, b.p, k,
+                                 group_mb << 20))
+                 for b in ell.rows_side.buckets)
+    assert (groups > 1) == (group_mb == 1)
     Wt, Ht, st = als_ell_train(R, W0.copy(), H0.copy(), T, cfg_t)
     np.testing.assert_allclose(Wt, Wc, atol=5e-4, rtol=5e-4)
     np.testing.assert_allclose(Ht, Hc, atol=5e-4, rtol=5e-4)

@@ -31,7 +31,7 @@ def test_validation():
 
 def test_auto_backend_resolution():
     c = Config(backend="auto", dense_max_cells=1000)
-    assert c.resolve_backend(10, 10) in (Backend.DENSE, Backend.PALLAS)
+    assert c.resolve_backend(10, 10) == Backend.DENSE
     assert c.resolve_backend(1000, 1000) == Backend.HYBRID
     assert Config(backend="auto", dense_max_cells=1000,
                   hybrid_dense_cells=0).resolve_backend(1000, 1000) == Backend.ELL
@@ -45,16 +45,21 @@ def test_string_coercion():
 
 
 def test_als_explicit_dense_pallas_normalize_to_ell():
-    """ALS has exactly one compiled path; an explicit dense/pallas request
-    resolves to ELL so reported backend == executed backend."""
+    """ALS has exactly one compiled path; an explicit dense/hybrid request
+    resolves to ELL so reported backend == executed backend. The removed
+    ``pallas`` backend is rejected."""
     assert Config(solver="als", backend="dense").resolve_backend(5, 5) == Backend.ELL
-    assert Config(solver="als", backend="pallas").resolve_backend(5, 5) == Backend.ELL
+    assert Config(solver="als", backend="hybrid").resolve_backend(5, 5) == Backend.ELL
+    with pytest.raises(ValueError):
+        Config(solver="als", backend="pallas")
     assert Config(solver="als", backend="ref").resolve_backend(5, 5) == Backend.REF
 
 
 def test_solver_knob_validation():
     with pytest.raises(ValueError):
         Config(als_solver="GJ")
+    with pytest.raises(ValueError):
+        Config(als_solver="gj")            # the removed Pallas solve
     with pytest.raises(ValueError):
         Config(als_precision="bf16")
     Config(als_precision="high")        # bf16_3x — valid since round 2

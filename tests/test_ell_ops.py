@@ -1,8 +1,7 @@
 """Unit tests for the fused single-consumer ELL ops (ops/ell_ops.py).
 
 The fused ops exist because a chunked gather tile fed to more than one
-consumer op makes XLA re-run the whole gather per consumer (measured
-~28 ms/rank at Netflix dims, results/residual_update_micro_r3.json). They
+consumer op makes XLA re-run the whole gather per consumer. They
 must be numerically interchangeable with the unfused composition they
 replace — same UpdateRating / RankOneUpdate math
 (/root/reference/src/CCD.cpp:6-43), one pass."""

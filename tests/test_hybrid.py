@@ -222,12 +222,10 @@ def test_hybrid_nan_mask_inner2_and_resume(small_data, tmp_path):
                                      ("float8_e4m3fn", 0.05)])
 def test_hybrid_lowprec_residual(small_data, ccd_golden, rdt, tol):
     """Reduced-precision residual storage tracks the golden RMSE trajectory
-    over a FEW iterations. bf16 is measured indistinguishable through full
-    convergence; fp8-e4m3 is fine early but STALLS at a worse plateau at
-    convergence (measured on the ml1m fixture at 15 iters: 0.764 vs 0.710,
-    results/rmse_trajectory_ml1m_hybrid_fp8.jsonl) — its ~6% storage
-    quantization feeds back through the rank recursion, so fp8 is opt-in
-    for throughput screening, never the default."""
+    over a FEW iterations. fp8-e4m3 is fine early but stalls at a worse
+    plateau at convergence (on the ml1m fixture at 15 iters: 0.764 vs
+    0.710) — its ~6% storage quantization feeds back through the rank
+    recursion, so fp8 is opt-in for screening, never the default."""
     R, T = small_data
     W0, H0, Wr, Hr, stats_r = ccd_golden
     cfg = Config(k=K, maxiter=3, lambda_=0.1, backend="hybrid",
@@ -299,7 +297,7 @@ def test_hybrid_auto_stair_plan_properties():
     """The data-driven stair (hybrid_panel_widths='auto'): budget respected,
     widths non-increasing over a contiguous row stair, panel count capped,
     and coverage at least matching the hand-width legacy planner at the
-    same budget (VERDICT r2 #3)."""
+    same budget."""
     from cuda_recommender_tpu.data import datasets
     R, _ = datasets.synthetic(m=2000, n=600, nnz=40000, seed=11)
     budget = 60 * R.cols
@@ -368,8 +366,7 @@ def test_hybrid_defer_group_equivalent(small_data, defer, inner):
 def test_hybrid_transpose_golden(small_data):
     """hybrid_transpose=True solves R^T with the item side seeded — the
     trajectories must match the golden reference run on the TRANSPOSED
-    problem exactly (VERDICT r4 next #4; same dual-backend discipline,
-    orientation flipped)."""
+    problem exactly (same dual-backend discipline, orientation flipped)."""
     from cuda_recommender_tpu.data.sparse import make_test
     R, T = small_data
     W0, H0 = init_factors_np(K, R.rows, R.cols, seed=0)

@@ -1,184 +1,98 @@
-"""Pallas fused-kernel backend: golden validation + kernel unit test.
-
-On the CPU test backend the kernel runs in Pallas interpreter mode — same
-code path shape as the compiled TPU kernel."""
+"""Fused NaN-sentinel panel kernels (ops/panel_pallas.py) in Pallas interpret
+mode on the CPU: each kernel against direct NumPy, over ragged shapes that
+leave partial tiles on both axes and both storage dtypes, plus the v-sweep
+grid choice."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from cuda_recommender_tpu.core.config import Config
-from cuda_recommender_tpu.core.init import init_factors_np
-from cuda_recommender_tpu.eval.metrics import golden_compare
-from cuda_recommender_tpu.ops.ccd_pallas import BM, BN, fused_update_vsweep
-from cuda_recommender_tpu.solvers.ccd_pallas import ccd_pallas_train
-from cuda_recommender_tpu.solvers.reference import ccd_reference
+from cuda_recommender_tpu.ops.panel_pallas import (
+    TARGET_PROGRAMS, _round_to_storage, panel_update_vsweep, panel_usweep,
+    panel_vsweep, vsweep_chunks)
 
-
-def test_fused_kernel_matches_reference_ops(rng):
-    m, n = BM * 2, BN * 2
-    Rhat = rng.normal(size=(m, n)).astype(np.float32)
-    mask = (rng.random((m, n)) < 0.1).astype(np.float32)
-    Rhat = Rhat * mask
-    ua, us = (rng.normal(size=m).astype(np.float32) for _ in range(2))
-    va, vs = (rng.normal(size=n).astype(np.float32) for _ in range(2))
-
-    Rnew, g, h = fused_update_vsweep(
-        jnp.asarray(Rhat), jnp.asarray(mask, jnp.bfloat16),
-        jnp.asarray(ua), jnp.asarray(us), jnp.asarray(va), jnp.asarray(vs),
-        interpret=jax.default_backend() == "cpu")
-
-    want_R = Rhat + (np.outer(ua, va) - np.outer(us, vs)) * mask
-    np.testing.assert_allclose(np.asarray(Rnew), want_R, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(g), ua @ want_R, rtol=2e-4, atol=1e-3)
-    np.testing.assert_allclose(np.asarray(h), (ua * ua) @ mask,
-                               rtol=2e-4, atol=1e-3)
+# (M, W, bm, bw): exact tiles, ragged rows and columns, one tile, and a
+# ragged panel with several row chunks per column block
+SHAPES = [(48, 64, 16, 32), (50, 70, 16, 32), (16, 128, 16, 128),
+          (333, 97, 32, 64)]
 
 
-def test_ccd_pallas_golden(small_data):
-    R, T = small_data
-    k = 5
-    W0, H0 = init_factors_np(k, R.rows, R.cols, seed=0)
-    Wr, Hr = W0.copy(), H0.copy()
-    stats_r = ccd_reference(R, Wr, Hr, T, lambda_=0.1, maxiter=3,
-                            maxinneriter=1)
-    cfg = Config(k=k, maxiter=3, maxinneriter=1, lambda_=0.1,
-                 backend="pallas")
-    W, H, stats = ccd_pallas_train(R, W0.copy(), H0.copy(), T, cfg)
-    assert golden_compare(W, Wr, atol=1e-3).passed
-    assert golden_compare(H, Hr, atol=1e-3).passed
-    for a, b in zip(stats, stats_r):
-        assert abs(a.rmse - b.rmse) < 1e-3
+def _panel(M, W, seed):
+    """NaN-sentinel panel (30% observed) and dyadic factor vectors. Dyadic
+    values make every product and the delta exact in f32, so the updated
+    residual has ONE correct value whether or not the backend contracts
+    the delta into an FMA — the check can then demand bit-equality."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random((M, W)) < 0.3
+    Rd = np.where(mask, rng.normal(size=(M, W)).astype(np.float32), np.nan)
+    uo, up, vo, vp = (rng.integers(-64, 65, size=s).astype(np.float32) / 64
+                      for s in (M, M, W, W))
+    return mask, Rd, uo, up, vo, vp
 
 
-def test_ccd_pallas_checkpoint_resume(small_data, tmp_path):
-    from cuda_recommender_tpu.core.trainer import train
-
-    R, T = small_data
-    base = dict(k=4, lambda_=0.1, backend="pallas")
-    full = train(Config(maxiter=3, **base), R, T)
-    ck = str(tmp_path / "ck")
-    train(Config(maxiter=1, checkpoint_dir=ck, checkpoint_every=1, **base), R, T)
-    resumed = train(Config(maxiter=3, checkpoint_dir=ck, checkpoint_every=1,
-                           **base), R, T, resume_from_checkpoint=True)
-    np.testing.assert_allclose(full.W, resumed.W, atol=1e-6)
-    np.testing.assert_allclose(full.H, resumed.H, atol=1e-6)
-
-
-def test_gj_solve_large_k_dma_path(rng):
-    """k >= ~96 dispatches the manual-DMA Gauss-Jordan variant (the
-    pipelined kernel's double-buffered A block OOMs scoped VMEM at k=128,
-    measured 24.75 MB vs the 16 MB limit on v5e). Validates both the
-    dispatch boundary and the elimination under interpret mode."""
-    from cuda_recommender_tpu.ops.gj_pallas import (
-        _pipelined_fits, gj_solve_pallas_bl)
-
-    assert _pipelined_fits(40, 128)
-    assert not _pipelined_fits(128, 128)
-
-    for k, S in [(128, 200), (128, 64)]:
-        F = rng.normal(size=(S, k, k)).astype(np.float32)
-        A = np.einsum("sij,skj->sik", F, F) + 3 * np.eye(k, dtype=np.float32)
-        b = rng.normal(size=(S, k)).astype(np.float32)
-        x = np.asarray(gj_solve_pallas_bl(
-            jnp.asarray(A.transpose(1, 2, 0)), jnp.asarray(b.T),
-            interpret=jax.default_backend() == "cpu")).T
-        ref = np.stack([np.linalg.solve(A[s], b[s]) for s in range(S)])
-        np.testing.assert_allclose(x, ref, rtol=5e-4, atol=5e-4)
+@pytest.mark.parametrize("kernel", ["update_vsweep", "vsweep", "usweep"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,W,bm,bw", SHAPES)
+def test_panel_kernel_matches_numpy(kernel, dtype, M, W, bm, bw):
+    mask, Rd, uo, up, vo, vp = _panel(M, W, seed=M * W)
+    Rdj = jnp.asarray(Rd, dtype)
+    Rm = np.where(mask, np.asarray(Rdj.astype(jnp.float32)), 0.0)
+    mf = mask.astype(np.float32)
+    if kernel == "update_vsweep":
+        want = Rdj.astype(jnp.float32) + jnp.asarray(
+            np.outer(uo, vo) - np.outer(up, vp))
+        if dtype == "bfloat16":
+            want = jax.lax.reduce_precision(want, 8, 7)
+        Rn, g, h = panel_update_vsweep(
+            Rdj, jnp.asarray(uo), jnp.asarray(up), jnp.asarray(vo),
+            jnp.asarray(vp), bm=bm, bw=bw)
+        Rn32 = np.asarray(Rn.astype(jnp.float32))
+        assert Rn.dtype == Rdj.dtype
+        assert np.isnan(Rn32[~mask]).all()              # sentinel preserved
+        # the stored value is f32(R) + delta rounded ONCE to storage
+        np.testing.assert_array_equal(Rn32[mask], np.asarray(want)[mask])
+        Rm = np.where(mask, Rn32, 0.0)
+        got, ref = (g, h), (uo @ Rm, (uo * uo) @ mf)
+    elif kernel == "vsweep":
+        got = panel_vsweep(Rdj, jnp.asarray(uo), bm=bm, bw=bw)
+        ref = (uo @ Rm, (uo * uo) @ mf)
+    else:
+        got = panel_usweep(Rdj, jnp.asarray(vo), bm=bm, bw=bw)
+        ref = (Rm @ vo, mf @ (vo * vo))
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(np.asarray(a), b, rtol=2e-5, atol=2e-4)
 
 
-def test_panel_kernels_match_numpy(rng):
-    """Fused NaN-sentinel panel kernels vs direct NumPy, including ragged
-    shapes that force internal padding and both storage dtypes."""
-    from cuda_recommender_tpu.ops.panel_pallas import (
-        panel_update_vsweep, panel_usweep, panel_vsweep)
-
-    for (M, W, bm, bw) in [(48, 64, 16, 32), (50, 70, 16, 32),
-                           (16, 128, 16, 128)]:
-        mask = rng.random((M, W)) < 0.3
-        Rd = np.where(mask, rng.normal(size=(M, W)).astype(np.float32),
-                      np.nan)
-        uo, up, vo, vp = (rng.normal(size=s).astype(np.float32)
-                          for s in (M, M, W, W))
-        delta = np.outer(uo, vo) - np.outer(up, vp)
-        interp = jax.default_backend() == "cpu"
-        for dt in (jnp.float32, jnp.bfloat16):
-            Rdj = jnp.asarray(Rd, dt)
-            # kernel semantics: f32 add + ONE explicit rounding (the sweep
-            # then reads exactly the persisted value)
-            want = Rdj.astype(jnp.float32) + jnp.asarray(delta)
-            if dt == jnp.bfloat16:
-                want = jax.lax.reduce_precision(want, 8, 7)
-            want_R = np.asarray(want)
-            Rn, g, h = panel_update_vsweep(
-                Rdj, jnp.asarray(uo), jnp.asarray(up), jnp.asarray(vo),
-                jnp.asarray(vp), interpret=interp, bm=bm, bw=bw)
-            Rn32 = np.asarray(Rn.astype(jnp.float32))
-            assert np.isnan(Rn32[~mask]).all()          # sentinel preserved
-            np.testing.assert_allclose(Rn32[mask], want_R[mask],
-                                       rtol=2e-6, atol=2e-6)
-            Rm = np.where(mask, Rn32, 0.0)
-            mf = mask.astype(np.float32)
-            np.testing.assert_allclose(np.asarray(g), uo @ Rm,
-                                       rtol=2e-5, atol=2e-4)
-            np.testing.assert_allclose(np.asarray(h), (uo * uo) @ mf,
-                                       rtol=2e-5, atol=2e-4)
-            gv, hv = panel_vsweep(Rn, jnp.asarray(uo), interpret=interp,
-                                  bm=bm, bw=bw)
-            np.testing.assert_allclose(np.asarray(gv), uo @ Rm,
-                                       rtol=2e-5, atol=2e-4)
-            np.testing.assert_allclose(np.asarray(hv), (uo * uo) @ mf,
-                                       rtol=2e-5, atol=2e-4)
-            gu, hu = panel_usweep(Rn, jnp.asarray(vo), interpret=interp,
-                                  bm=bm, bw=bw)
-            np.testing.assert_allclose(np.asarray(gu), Rm @ vo,
-                                       rtol=2e-5, atol=2e-4)
-            np.testing.assert_allclose(np.asarray(hu), mf @ (vo * vo),
-                                       rtol=2e-5, atol=2e-4)
+@pytest.mark.parametrize("M,W", [(1, 1), (50, 70), (300_001, 17_770),
+                                 (300_001, 2048), (4096, 17_770)])
+def test_vsweep_grid_covers_rows(M, W):
+    """The (column blocks × row chunks) grid covers every row exactly once
+    with at most one partial chunk, and reaches the program target when
+    there are enough rows."""
+    steps, n_chunks = vsweep_chunks(M, W)
+    row_blocks = -(-M // 32)
+    assert (n_chunks - 1) * steps < row_blocks <= n_chunks * steps
+    programs = n_chunks * -(-W // 128)
+    assert programs >= min(TARGET_PROGRAMS, row_blocks * -(-W // 128))
 
 
-def test_gj_blocked_elimination_correctness(rng):
-    """block_r > 0 (the opt-in blocked elimination) vs NumPy on SPD
-    systems, including ragged panel splits (k not a multiple of block_r)
-    and large-magnitude grams like the ALS item side produces (diag ~3e4
-    with lambda ~0.1). Round-4 shipped this path with NO correctness
-    test; the r5 investigation (results/als_gj_blocked_ab_r5.json) found
-    it loses digits catastrophically on large-magnitude grams (up to
-    ~30% relative at diag ~3e4, vs the default path's ~1e-6 on the SAME
-    systems): the composed panel update reconstructs the O(1) eliminated
-    panel rows by cancelling O(scale) terms. The large-scale bars here
-    are sanity-only (<1.0); the accuracy claim being tested is that the
-    DEFAULT r0 path stays exact where blocked does not, and that blocked
-    is structurally correct (tight bar) on normalized grams."""
-    from cuda_recommender_tpu.ops.gj_pallas import gj_solve_pallas_bl
+@pytest.mark.parametrize("bits", [0x7FC00000, 0x7FFFFFFF, 0xFFC00000,
+                                  0xFFFFFFFF])
+def test_round_to_storage_keeps_nan(bits):
+    """Every NaN encoding stays NaN through the bf16 rounding, including
+    the all-ones mantissa a GPU produces for NaN arithmetic (the bias add
+    would carry it into the sign bit)."""
+    x = jax.lax.bitcast_convert_type(jnp.uint32(bits), jnp.float32)
+    assert bool(jnp.isnan(_round_to_storage(x, jnp.bfloat16)))
 
-    interp = jax.default_backend() == "cpu"
-    # (k, gram scale, acceptable max relative error). The large-scale bars
-    # are LOOSE by design: the composed panel update reconstructs the
-    # O(1)-sized eliminated panel rows by cancelling O(scale) terms, so at
-    # diag ~3e4 the blocked path keeps only ~2-3 digits — the documented
-    # reason it is not accuracy-grade (gj_pallas.py docstring). The
-    # scale-1 bars are tight and catch structural breakage.
-    for k, scale, bar in [(10, 1.0, 2e-3), (40, 1.0, 2e-3),
-                          (10, 3e4, 1.0), (16, 3e4, 1.0)]:
-        for br in (2, 5, 8):
-            S = 100
-            F = rng.normal(size=(S, k, 2 * k)).astype(np.float32)
-            A = (np.einsum("sij,skj->sik", F, F) / (2 * k) * scale
-                 + 0.1 * np.eye(k, dtype=np.float32))
-            b = rng.normal(size=(S, k)).astype(np.float32)
-            x = np.asarray(gj_solve_pallas_bl(
-                jnp.asarray(A.transpose(1, 2, 0)), jnp.asarray(b.T),
-                interpret=interp, block_r=br)).T
-            ref = np.linalg.solve(A, b[..., None])[..., 0]
-            rel = np.abs(x - ref) / (np.abs(ref) + 1e-6)
-            assert rel.max() < bar, (k, scale, br, rel.max())
-            if scale == 1.0:
-                continue
-            # and the default path keeps full f32 accuracy on the same
-            # systems — the accuracy gap IS the finding
-            x0 = np.asarray(gj_solve_pallas_bl(
-                jnp.asarray(A.transpose(1, 2, 0)), jnp.asarray(b.T),
-                interpret=interp, block_r=0)).T
-            rel0 = np.abs(x0 - ref) / (np.abs(ref) + 1e-6)
-            assert rel0.max() < 2e-4, (k, scale, rel0.max())
+
+def test_round_to_storage_is_round_to_nearest_even():
+    """Finite values round exactly like a single f32 -> bf16 conversion."""
+    rng = np.random.default_rng(1)
+    x = jnp.asarray(rng.normal(size=4096).astype(np.float32)
+                    * np.float32(2.0) ** rng.integers(-20, 20, size=4096))
+    got = np.asarray(_round_to_storage(x, jnp.bfloat16))
+    want = np.asarray(x.astype(jnp.bfloat16).astype(jnp.float32))
+    np.testing.assert_array_equal(got, want)

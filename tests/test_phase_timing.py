@@ -77,9 +77,8 @@ def test_phase_mode_through_trainer_verbose(small_data, capsys):
 
 def test_phase_mode_unsupported_combinations(small_data):
     R, T = small_data
-    with pytest.raises(NotImplementedError, match="pallas"):
-        train(Config(k=4, maxiter=1, backend="pallas", phase_timing=True),
-              R, T)
+    with pytest.raises(NotImplementedError, match="CCD telemetry"):
+        train(Config(solver="als", k=4, maxiter=1, phase_timing=True), R, T)
     from cuda_recommender_tpu.parallel.mesh import make_mesh
     with pytest.raises(NotImplementedError, match="single-device"):
         train(Config(k=4, maxiter=1, backend="ell", phase_timing=True), R, T,
@@ -87,7 +86,7 @@ def test_phase_mode_unsupported_combinations(small_data):
 
 
 def test_phase_mode_hybrid(small_data):
-    """VERDICT r2 missing #1: the flagship hybrid backend now produces the
+    """The flagship hybrid backend produces the
     reference's populated rank/update/rmse split (src/CCD.cpp:158) in
     --phase-timing mode, golden-identical to the reference solver."""
     R, T = small_data
